@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d3fields_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD
+from d3fields_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD, linear
 from d3fields_tpu_torch.models.resize import (
     bilinear_resize, cubic_resize_np, pil_bilinear_resize_u8,
 )
@@ -75,11 +75,6 @@ class Dinov2Config:
 # Modules (torch-hub parameter names)
 # ---------------------------------------------------------------------------
 
-def _linear(d_in: int, d_out: int, device) -> nn.Linear:
-    # no default init: every weight is set by init_params or a checkpoint
-    return nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
-
-
 class _LayerScale(nn.Module):
     def __init__(self, dim: int, device):
         super().__init__()
@@ -90,8 +85,8 @@ class _Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, device):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = _linear(dim, 3 * dim, device)
-        self.proj = _linear(dim, dim, device)
+        self.qkv = linear(dim, 3 * dim, device)
+        self.proj = linear(dim, dim, device)
 
     def forward(self, x: Tensor) -> Tensor:
         B, N, D = x.shape
@@ -107,8 +102,8 @@ class _Attention(nn.Module):
 class _Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, device):
         super().__init__()
-        self.fc1 = _linear(dim, hidden, device)
-        self.fc2 = _linear(hidden, dim, device)
+        self.fc1 = linear(dim, hidden, device)
+        self.fc2 = linear(hidden, dim, device)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))

@@ -1,0 +1,126 @@
+"""Multi-scale deformable-attention sampling and its hand-written CUDA kernel.
+
+Counterpart of ``d3fields_tpu/models/groundingdino/gather_pallas.py::
+deformable_gather_pallas`` and of the function it computes,
+``model.py::deformable_attention_core``:
+
+- :func:`deform_gather` replaces the Pallas TPU kernel. On a CUDA tensor it
+  launches ``csrc/deform_gather.cu`` (built with nvcc on first use) or
+  raises; on a CPU tensor it runs :func:`deform_gather_plain`, which is
+  also the kernel's oracle on the card.
+- The kernel reads ``value`` where it lies. The TPU kernel's level-stacked
+  4-corner tables, its 8-query groups and lane-packed weights are not
+  carried over, and neither are its limits (f32 tables of width
+  4*hd == 128, ``query_tile % 8``, one view per call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from d3fields_tpu_torch import _build
+
+Tensor = torch.Tensor
+
+
+def _kernel():
+    fn = _build.load("deform_gather").d3f_deform_gather
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=16)
+def _level_table(shapes: Tuple[Tuple[int, int], ...], device: torch.device) -> Tensor:
+    """The kernel's (L, 3) int64 rows of (h, w, level_start) on ``device``,
+    uploaded once per level layout: a copy from the host would wait for
+    the card at every launch."""
+    levels, start = [], 0
+    for h, w in shapes:
+        levels.append((h, w, start))
+        start += h * w
+    return torch.tensor(levels, dtype=torch.int64, device=device)
+
+
+def deform_gather_plain(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                        loc: Tensor, attn: Tensor) -> Tensor:
+    """Plain PyTorch version: per level, ``F.grid_sample`` (bilinear,
+    ``align_corners=False``, zeros padding) of the (B*nh, hd, h, w) maps at
+    the sample positions, weighted by ``attn`` and summed over points and
+    levels."""
+    B, S, nh, hd = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    grids = 2.0 * loc - 1.0
+    out = value.new_zeros((B * nh, hd, Q))
+    start = 0
+    for li, (h, w) in enumerate(spatial_shapes):
+        v = value[:, start:start + h * w].permute(0, 2, 3, 1).reshape(B * nh, hd, h, w)
+        g = grids[:, :, :, li].permute(0, 2, 1, 3, 4).reshape(B * nh, Q, P, 2)
+        taps = F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)  # (B*nh, hd, Q, P)
+        a = attn[:, :, :, li].permute(0, 2, 1, 3).reshape(B * nh, 1, Q, P)
+        out = out + (taps * a).sum(-1)
+        start += h * w
+    return out.reshape(B, nh, hd, Q).permute(0, 3, 1, 2).reshape(B, Q, nh * hd)
+
+
+def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                  loc: Tensor, attn: Tensor) -> Tensor:
+    """Deformable-attention sampling.
+
+    Args:
+      value: (B, S, nh, hd) float32; the levels' (h, w) maps flattened
+        row-major and stacked along S in ``spatial_shapes`` order.
+      spatial_shapes: the L levels' (h, w), with sum(h*w) == S.
+      loc: (B, Q, nh, L, P, 2) float32 sample positions (x, y), [0, 1]
+        spanning each map; positions outside sample zeros.
+      attn: (B, Q, nh, L, P) float32 attention weights.
+
+    Returns: (B, Q, nh*hd) float32.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel, and
+    ``deform_gather.launches`` counts each launch.
+    """
+    if value.dim() != 4 or loc.dim() != 6 or attn.dim() != 5:
+        raise ValueError("value must be (B, S, nh, hd), loc (B, Q, nh, L, P, 2) and "
+                         "attn (B, Q, nh, L, P)")
+    B, S, nh, hd = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    if tuple(loc.shape) != (B, Q, nh, L, P, 2) or tuple(attn.shape) != (B, Q, nh, L, P):
+        raise ValueError(f"loc {tuple(loc.shape)} and attn {tuple(attn.shape)} do not fit "
+                         f"value {tuple(value.shape)}")
+    if len(shapes) != L or sum(h * w for h, w in shapes) != S:
+        raise ValueError(f"spatial_shapes {shapes} do not cover S={S} in L={L} levels")
+    if not (value.dtype == loc.dtype == attn.dtype == torch.float32):
+        raise TypeError(f"expected float32 value, loc and attn, got {value.dtype}, "
+                        f"{loc.dtype}, {attn.dtype}")
+    if not (value.device == loc.device == attn.device):
+        raise ValueError("value, loc and attn must lie on one device")
+    if value.device.type == "cpu":
+        return deform_gather_plain(value, shapes, loc, attn)
+    if value.device.type != "cuda":
+        raise ValueError(f"no kernel for device {value.device}")
+    if not (value.is_contiguous() and loc.is_contiguous() and attn.is_contiguous()):
+        raise ValueError("the kernel takes contiguous value, loc and attn")
+    out = torch.empty((B, Q, nh * hd), dtype=torch.float32, device=value.device)
+    if out.numel() == 0:
+        return out
+    levels = _level_table(tuple(shapes), value.device)
+    with torch.cuda.device(value.device):
+        err = _kernel()(
+            value.data_ptr(), levels.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), B, S, Q, nh, hd, L, P, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"deform_gather launch failed: CUDA error {err}")
+    deform_gather.launches += 1
+    return out
+
+
+deform_gather.launches = 0

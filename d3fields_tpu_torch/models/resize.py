@@ -10,7 +10,11 @@ Counterpart of ``d3fields_tpu/models/resize.py``:
 - :func:`pil_bilinear_resize_u8` — bit-exact Pillow 8bpc bilinear resize,
   with an in-tree numpy reimplementation used where Pillow is missing.
 - :func:`bilinear_resize` — device-side antialiased bilinear resize of
-  float images (the JAX package's ``jax.image.resize`` 'bilinear').
+  float images (the JAX package's ``jax.image.resize`` 'bilinear'), for the
+  detectors' and SAM's preprocessing.
+- :func:`bilinear_resize_exact` — the same without antialiasing on
+  downscales (``F.interpolate``'s plain bilinear), for SAM's mask
+  postprocessing.
 """
 
 from __future__ import annotations
@@ -155,4 +159,14 @@ def bilinear_resize(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     x = img.permute(0, 3, 1, 2)
     out = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                         align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
+
+
+def bilinear_resize_exact(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Non-antialiased bilinear resize of (K, H, W, C), half-pixel centres:
+    ``F.interpolate(mode='bilinear', align_corners=False, antialias=False)``
+    on up- and downscales alike (the JAX package's ``bilinear_resize_exact``).
+    The original SAM postprocess thresholds logits resized this way."""
+    out = F.interpolate(img.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
+                        align_corners=False, antialias=False)
     return out.permute(0, 2, 3, 1)

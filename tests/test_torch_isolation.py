@@ -1,8 +1,11 @@
-"""d3fields_tpu_torch stands alone: it imports neither JAX nor d3fields_tpu.
+"""d3fields_tpu_torch stands alone: it imports neither JAX nor d3fields_tpu,
+nor transformers.
 
 Importing any d3fields_tpu module runs d3fields_tpu/__init__.py, which
 imports JAX, so the port keeps its own copies of what it needs. Only the
-parity tests import both packages.
+parity tests import both packages. The GPU machine has no transformers:
+a port module that imported it would pass here and fail on the card, so
+the parity tests alone build the huggingface oracles.
 """
 
 import ast
@@ -12,7 +15,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "d3fields_tpu_torch")
-BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax"}
+BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "transformers"}
 
 
 def _is_reference(module: str) -> bool:
