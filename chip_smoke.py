@@ -7,8 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU (Hopper):
 
 It builds every CUDA kernel of the port from ``d3fields_tpu_torch/csrc``
 with nvcc (one nvcc per source, all started together), holds each against
-its plain PyTorch version on the card and times it, then drives the port's
-two paths at full width, with random weights from seeded generators:
+its plain PyTorch version on the card, at the main path's shapes and at a
+shape for every route of the kernel, and times it (``fused_weighted_interp``
+through every route that fits, at the shapes where the wrapper picks each),
+then drives the port's two paths at full width, with random weights from
+seeded generators:
 
 1. the field query: DINOv2 ViT-L/14 -> ``Fusion.update`` ->
    ``Fusion.batch_eval`` of 1,048,576 points over 4 views, 3 requests;
@@ -21,7 +24,9 @@ Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
 kernels. After the counted requests, one more request of each path is
 traced with torch.profiler for the device time by kernel and the device's
-idle share (traces under build/traces/).
+idle share (traces under build/traces/), and each kernel is held and timed
+on the inputs a request gives it: one field-query tile, and the first
+encoder and decoder layers of one detection.
 
 Output: one JSON object per phase, then the ``kernels`` line, then the
 card's name and power limit as nvidia-smi gives them, and as the last line
@@ -61,20 +66,24 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` runs of ``fn``, each timed with CUDA events."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, windows: int = 5) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``reps``
+    back-to-back calls (so that the host's launch time hides behind the
+    device's work), after ``warmup`` calls; the median of ``windows`` such
+    windows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -113,39 +122,69 @@ def kernel_inputs(dev, V, hw, C, N, image_hw, xy_range, seed):
     return feats, idx, (tw * vw[..., None]).contiguous()
 
 
-def check_fused_weighted_interp(dev):
-    """The kernel against its plain version at the main path's shape and at
-    edge shapes; times at the main path's shape."""
+def compare(out, ref):
+    """The largest error where the plain version is finite, and whether the
+    kernel holds to it at KERNEL_RTOL / KERNEL_ATOL, NaN where it is NaN."""
+    fin = torch.isfinite(ref)
+    err = float((out - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+    ok = bool(torch.allclose(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL, equal_nan=True))
+    return err, ok
+
+
+def kernel_time(kernel: str, shape: str, fns: dict, moved: int, flops: int, **extra) -> dict:
+    """Times each callable of ``fns`` (a None stays None), emits one
+    ``kernel_time`` line with the bound of the work, and returns its times
+    and bound. The bound counts ``moved`` bytes at the HBM rate and
+    ``flops`` at the float32 peak."""
+    times = {k: (cuda_ms(f) if f is not None else None) for k, f in fns.items()}
+    bytes_ms, ops_ms = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    row = {**times, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "kernel_time", "kernel": kernel, "shape": shape, **row, "bytes": moved,
+          "flops": flops, **extra})
+    return row
+
+
+# field-query kernel checks: V, patch grid, C, N, image size, xy range
+FUSED_SHAPES = {
+    # the main path: 4 views, 24x32 DINOv2 patch grid, 1024-d, one 131072-point tile
+    "main": (4, (24, 32), 1024, TILE, (240, 320), (-10.0, 330.0)),
+    # a larger patch grid of the same width and tile: 16-channel slices do
+    # not fit, 8-channel ones do
+    "slice8": (4, (30, 40), 1024, TILE, (240, 320), (-10.0, 330.0)),
+    # too wide for any slice (4 x 4,800 rows x 16 B > 227 KB): the direct route
+    "direct_large_grid": (4, (60, 80), 256, 20000, (240, 320), (-10.0, 330.0)),
+    # a ragged last slice (132 = 8 x 16 + 4)
+    "ragged": (3, (6, 8), 132, 77, (48, 64), (-5.0, 70.0)),
+    # tests/test_kernels.py:27-48: taps fall outside, C not a multiple of 4 (direct)
+    "edge": (3, (6, 8), 130, 77, (48, 64), (-5.0, 70.0)),
+    "one_view": (1, (24, 32), 1024, 4097, (240, 320), (-10.0, 330.0)),
+    "narrow": (2, (6, 8), 3, 1000, (48, 64), (-5.0, 70.0)),
+}
+
+
+def fused_route(feats, idx, w, cs: int):
+    """One launch of the field-query kernel's C entry with its route forced
+    (``cs`` channels per slice, 0 for the direct gather), to hold and time
+    the routes against each other on the same inputs. Counts no launch."""
     from d3fields_tpu_torch.fields import kernels
 
-    shapes = {
-        # the main path: 4 views, 24x32 DINOv2 patch grid, 1024-d, one 131072-point tile
-        "main": (4, (24, 32), 1024, TILE, (240, 320), (-10.0, 330.0)),
-        # tests/test_kernels.py:27-48: taps fall outside, C not a multiple of 4
-        "edge": (3, (6, 8), 130, 77, (48, 64), (-5.0, 70.0)),
-        "one_view": (1, (24, 32), 1024, 4097, (240, 320), (-10.0, 330.0)),
-        "narrow": (2, (6, 8), 3, 1000, (48, 64), (-5.0, 70.0)),
-    }
-    worst = 0.0
-    for i, (label, (V, hw, C, N, image_hw, xy_range)) in enumerate(shapes.items()):
-        feats, idx, w = kernel_inputs(dev, V, hw, C, N, image_hw, xy_range, seed=i)
-        out = kernels.fused_weighted_interp(feats, idx, w)
-        torch.cuda.synchronize()
-        ref = kernels.fused_weighted_interp_plain(feats, idx, w)
-        err = float((out - ref).abs().max())
-        ok = bool(torch.allclose(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL))
-        emit({"phase": "kernel_check", "kernel": "fused_weighted_interp", "shape": label,
-              "V": V, "P": hw[0] * hw[1], "C": C, "N": N, "max_abs_err": err,
-              "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok})
-        check(ok, f"fused_weighted_interp disagrees with its plain version at {label}")
-        worst = max(worst, err)
-        if label == "main":
-            main = (feats, idx, w)
-
-    feats, idx, w = main
     V, P, C = feats.shape
     N = idx.shape[1]
-    flat_idx = (idx.long() + (torch.arange(V, device=dev) * P)[:, None, None])
+    out = torch.empty((N, C), dtype=torch.float32, device=feats.device)
+    err = kernels._kernel()(feats.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+                            V, P, N, C, cs, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"fused_weighted_interp with {cs}-channel slices: CUDA error {err}")
+    return out
+
+
+def time_fused_weighted_interp(shape: str, feats, idx, w, **extra) -> dict:
+    """The kernel, its plain version and ``F.embedding_bag`` on one input."""
+    from d3fields_tpu_torch.fields import kernels
+
+    V, P, C = feats.shape
+    N = idx.shape[1]
+    flat_idx = (idx.long() + (torch.arange(V, device=idx.device) * P)[:, None, None])
     flat_idx = flat_idx.permute(1, 0, 2).reshape(N, 4 * V).contiguous()
     flat_w = w.permute(1, 0, 2).reshape(N, 4 * V).contiguous()
     table = feats.reshape(V * P, C)
@@ -153,95 +192,241 @@ def check_fused_weighted_interp(dev):
     def library():
         return F.embedding_bag(flat_idx, table, mode="sum", per_sample_weights=flat_w)
 
-    lib_err = float((library() - kernels.fused_weighted_interp_plain(feats, idx, w)).abs().max())
-    times = {
-        "ms": cuda_ms(lambda: kernels.fused_weighted_interp(feats, idx, w)),
-        "plain_ms": cuda_ms(lambda: kernels.fused_weighted_interp_plain(feats, idx, w)),
-        "library_ms": cuda_ms(library),
-    }
+    lib_err, _ = compare(library(), kernels.fused_weighted_interp_plain(feats, idx, w))
     moved = (feats.numel() + idx.numel() + w.numel() + N * C) * 4
-    flops = 2 * 4 * V * N * C
-    bytes_ms, ops_ms = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    emit({"phase": "kernel_time", "kernel": "fused_weighted_interp", "shape": "main",
-          **times, "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-          "bytes": moved, "flops": flops, "library_max_abs_err": lib_err})
+    return kernel_time(
+        "fused_weighted_interp", shape,
+        {"ms": lambda: kernels.fused_weighted_interp(feats, idx, w),
+         "plain_ms": lambda: kernels.fused_weighted_interp_plain(feats, idx, w),
+         "library_ms": library},
+        moved, 2 * 4 * V * N * C, slice_channels=kernels.slice_channels(V, P, C),
+        library_max_abs_err=lib_err, **extra)
+
+
+# the shapes at which every route that fits is held and timed, so that the
+# run shows whether kernels.slice_channels picks the fastest
+ROUTE_SHAPES = ("main", "slice8")
+
+
+def time_routes(label: str, feats, idx, w, ref) -> tuple:
+    """Every route the table fits, forced, held to the plain version's
+    ``ref`` and timed; one ``route_choice`` line says which the wrapper
+    picks and which was fastest. Returns (route_ms, worst error)."""
+    from d3fields_tpu_torch.fields import kernels
+
+    V, P, C = feats.shape
+    fits = [cs for cs in kernels.SLICE_CHANNELS
+            if cs <= C and V * P * cs * 4 <= kernels.SMEM_PER_BLOCK]
+    route_ms, worst = {}, 0.0
+    for cs in fits + [0]:
+        out = fused_route(feats, idx, w, cs)
+        torch.cuda.synchronize()
+        err, ok = compare(out, ref)
+        route_ms[cs] = cuda_ms(lambda: fused_route(feats, idx, w, cs))
+        emit({"phase": "kernel_check", "kernel": "fused_weighted_interp",
+              "shape": f"{label}_slices_{cs}", "slice_channels": cs, "max_abs_err": err,
+              "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok, "ms": route_ms[cs]})
+        check(ok, f"fused_weighted_interp with {cs}-channel slices disagrees at {label}")
+        worst = max(worst, err)
+    emit({"phase": "route_choice", "kernel": "fused_weighted_interp", "shape": label,
+          "V": V, "P": P, "C": C, "N": idx.shape[1], "picked": kernels.slice_channels(V, P, C),
+          "fastest": min(route_ms, key=route_ms.get),
+          "route_ms": {str(k): v for k, v in route_ms.items()}})
+    return route_ms, worst
+
+
+def check_fused_weighted_interp(dev):
+    """The kernel against its plain version at the main path's shape, at a
+    shape for each route and at edge shapes; at ROUTE_SHAPES, every route
+    that fits, each timed."""
+    from d3fields_tpu_torch.fields import kernels
+
+    worst = 0.0
+    for i, (label, (V, hw, C, N, image_hw, xy_range)) in enumerate(FUSED_SHAPES.items()):
+        feats, idx, w = kernel_inputs(dev, V, hw, C, N, image_hw, xy_range, seed=i)
+        out = kernels.fused_weighted_interp(feats, idx, w)
+        torch.cuda.synchronize()
+        ref = kernels.fused_weighted_interp_plain(feats, idx, w)
+        err, ok = compare(out, ref)
+        emit({"phase": "kernel_check", "kernel": "fused_weighted_interp", "shape": label,
+              "V": V, "P": hw[0] * hw[1], "C": C, "N": N,
+              "slice_channels": kernels.slice_channels(V, hw[0] * hw[1], C),
+              "max_abs_err": err, "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok})
+        check(ok, f"fused_weighted_interp disagrees with its plain version at {label}")
+        worst = max(worst, err)
+        if label in ROUTE_SHAPES:
+            route_ms, route_err = time_routes(label, feats, idx, w, ref)
+            worst = max(worst, route_err)
+        if label == "main":
+            main, main_route_ms = (feats, idx, w), route_ms
+        del feats, idx, w, out, ref
+
+    times = time_fused_weighted_interp(
+        "main", *main, route_ms={str(k): v for k, v in main_route_ms.items()})
     return {"name": "fused_weighted_interp", "route": "cuda",
             "source": "d3fields_tpu_torch/csrc/fused_interp.cu",
-            "replaces": "d3fields_tpu/fields/kernels.py:144",
-            "max_abs_err": worst, **times, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "replaces": "d3fields_tpu/fields/kernels.py:144", "max_abs_err": worst, **times}
+
+
+def capture_interp_inputs(state, pts):
+    """The (feats, idx, w) that ``eval_field_fused`` hands the kernel for one
+    tile of points, read by standing in for the module's kernel entry (the
+    stand-in returns the plain version's result and launches nothing)."""
+    from d3fields_tpu_torch.fields import kernels
+
+    calls, kernel = [], kernels.fused_weighted_interp
+
+    def capture(feats, idx, w):
+        calls.append((feats, idx, w))
+        return kernels.fused_weighted_interp_plain(feats, idx, w)
+
+    kernels.fused_weighted_interp = capture
+    try:
+        with torch.no_grad():
+            kernels.eval_field_fused(state, pts, NAMES)
+    finally:
+        kernels.fused_weighted_interp = kernel
+    check(len(calls) == 1, f"eval_field_fused called the kernel {len(calls)} times")
+    return calls[0]
 
 
 # the detector's 4 levels at 800x1067: S = Q = 17,821 encoder queries per view
 GDINO_LEVELS = ((100, 134), (50, 67), (25, 34), (13, 17))
 
+# deformable-gather kernel checks: B, levels, nh, hd, P, Q, loc range, share of NaN positions
+GATHER_SHAPES = {
+    # 4 views, the 4 real levels, Q = S (tools/bench_gather.py:48-60)
+    "encoder": (4, GDINO_LEVELS, 8, 32, 4, 17821, (-0.05, 1.05), 0.0),
+    # the decoder's 900 queries over the same maps
+    "decoder": (4, GDINO_LEVELS, 8, 32, 4, 900, (-0.05, 1.05), 0.0),
+    # tests/test_groundingdino.py:465-473: samples out of bounds, hd = 8
+    "edge": (2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333, (-0.2, 1.2), 0.0),
+    # hd = 12: 3 lanes per corner row, 10 lane groups and 2 idle lanes
+    "hd12": (2, ((13, 17), (7, 9)), 4, 12, 4, 500, (-0.2, 1.2), 0.0),
+    # L*P = 48 > 32 lanes: two rounds of the index phase
+    "lp48": (2, ((13, 17), (7, 9), (4, 5)), 8, 32, 16, 300, (-0.2, 1.2), 0.0),
+    # hd = 160: 40 float4s per corner row, two channel passes of the warp
+    "hd160": (1, ((13, 17), (7, 9)), 2, 160, 4, 200, (-0.2, 1.2), 0.0),
+    # samples far outside [0, 1] and NaN positions (NaN rows, as grid_sample)
+    "far_nan": (2, ((13, 17), (7, 9), (4, 5)), 8, 32, 4, 333, (-3.0, 4.0), 0.01),
+    # hd not a multiple of 4 (scalar route), one level, samples far outside [0, 1]
+    "odd_hd": (2, ((23, 31),), 3, 6, 3, 1000, (-3.0, 4.0), 0.0),
+}
 
-def gather_inputs(dev, B, levels, nh, hd, P, Q, loc_range, seed):
+
+def gather_inputs(dev, B, levels, nh, hd, P, Q, loc_range, nan_share, seed):
     rng = np.random.default_rng(seed)
     S = sum(h * w for h, w in levels)
     L = len(levels)
     value = rng.standard_normal((B, S, nh, hd), dtype=np.float32)
     loc = rng.uniform(*loc_range, size=(B, Q, nh, L, P, 2)).astype(np.float32)
+    loc[rng.uniform(size=loc.shape) < nan_share] = np.nan
     attn = rng.uniform(0, 1, size=(B, Q, nh, L, P)).astype(np.float32)
     attn /= attn.sum(axis=(-2, -1), keepdims=True)
     return tuple(torch.as_tensor(a, device=dev) for a in (value, loc, attn))
 
 
-def check_deform_gather(dev):
-    """The deformable-attention kernel against its plain version at the
-    detector's encoder and decoder shapes and at edge shapes; times at the
-    encoder's shape."""
+def gather_bytes(value, levels, loc, attn) -> dict:
+    """The bytes the gather must move on these inputs: each (batch, pixel,
+    head) row of ``value`` that an in-map corner of a sample touches, read
+    once; loc and attn read once; the output written once."""
+    B, S, nh, hd = value.shape
+    Q, P = loc.shape[1], loc.shape[4]
+    dev = value.device
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1)
+    head = torch.arange(nh, device=dev).view(1, 1, nh, 1)
+    keys, start = [], 0
+    for li, (h, w) in enumerate(levels):
+        g = 2.0 * loc[:, :, :, li] - 1.0  # (B, Q, nh, P, 2), the kernel's arithmetic
+        x0 = torch.floor(((g[..., 0] + 1.0) * w - 1.0) * 0.5)
+        y0 = torch.floor(((g[..., 1] + 1.0) * h - 1.0) * 0.5)
+        for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            x, y = x0 + dx, y0 + dy
+            inb = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            pix = start + y.clamp(0, h - 1).nan_to_num(0).long() * w \
+                + x.clamp(0, w - 1).nan_to_num(0).long()
+            keys.append(((b * S + pix) * nh + head)[inb])
+        start += h * w
+    rows = int(torch.unique(torch.cat(keys)).numel())
+    moved = (rows * hd + loc.numel() + attn.numel() + B * Q * nh * hd) * 4
+    return {"moved": moved, "value_rows_touched": rows, "value_rows": B * S * nh}
+
+
+def time_deform_gather(shape: str, value, levels, loc, attn, **extra) -> dict:
+    """The kernel and its plain version on one input, with the bound of
+    the value rows these samples touch."""
     from d3fields_tpu_torch.models.groundingdino import deform_gather as dg
 
-    shapes = {
-        # 4 views, the 4 real levels, Q = S (tools/bench_gather.py:48-60)
-        "encoder": (4, GDINO_LEVELS, 8, 32, 4, 17821, (-0.05, 1.05)),
-        # the decoder's 900 queries over the same maps
-        "decoder": (4, GDINO_LEVELS, 8, 32, 4, 900, (-0.05, 1.05)),
-        # tests/test_groundingdino.py:465-473: samples out of bounds, hd = 8
-        "edge": (2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333, (-0.2, 1.2)),
-        # hd not a multiple of 4 or 32, one level, samples far outside [0, 1]
-        "odd_hd": (2, ((23, 31),), 3, 6, 3, 1000, (-3.0, 4.0)),
-    }
-    worst = 0.0
-    for i, (label, (B, levels, nh, hd, P, Q, loc_range)) in enumerate(shapes.items()):
-        value, loc, attn = gather_inputs(dev, B, levels, nh, hd, P, Q, loc_range, seed=10 + i)
+    B, Q, nh, L, P, _ = loc.shape
+    hd = value.shape[-1]
+    traffic = gather_bytes(value, levels, loc, attn)
+    flops = 2 * 4 * B * Q * nh * L * P * hd  # 4 corners, a multiply and an add each
+    return kernel_time(
+        "deform_gather", shape,
+        {"ms": lambda: dg.deform_gather(value, levels, loc, attn),
+         "plain_ms": lambda: dg.deform_gather_plain(value, levels, loc, attn),
+         # no single PyTorch call computes this function: grid_sample
+         # samples one level and sums nothing
+         "library_ms": None},
+        traffic["moved"], flops, Q=Q,
+        value_rows_touched=traffic["value_rows_touched"], value_rows=traffic["value_rows"],
+        **extra)
+
+
+def check_deform_gather(dev):
+    """The deformable-attention kernel against its plain version at the
+    detector's encoder and decoder shapes and at a shape for each route and
+    edge; times at the encoder's and the decoder's shapes."""
+    from d3fields_tpu_torch.models.groundingdino import deform_gather as dg
+
+    worst, inputs = 0.0, {}
+    for i, (label, (B, levels, nh, hd, P, Q, loc_range, nan_share)) in \
+            enumerate(GATHER_SHAPES.items()):
+        value, loc, attn = gather_inputs(dev, B, levels, nh, hd, P, Q, loc_range, nan_share,
+                                         seed=10 + i)
         out = dg.deform_gather(value, levels, loc, attn)
         torch.cuda.synchronize()
         ref = dg.deform_gather_plain(value, levels, loc, attn)
-        err = float((out - ref).abs().max())
-        ok = bool(torch.allclose(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL))
+        err, ok = compare(out, ref)
         emit({"phase": "kernel_check", "kernel": "deform_gather", "shape": label, "B": B,
-              "levels": levels, "nh": nh, "hd": hd, "P": P, "Q": Q, "max_abs_err": err,
+              "levels": levels, "nh": nh, "hd": hd, "P": P, "Q": Q,
+              "route": "float4" if hd % 4 == 0 else "float",
+              "nan_rows": int(torch.isnan(ref).any(-1).sum()), "max_abs_err": err,
               "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok})
         check(ok, f"deform_gather disagrees with its plain version at {label}")
         worst = max(worst, err)
-        if label == "encoder":
-            main = (value, loc, attn)
+        if label in ("encoder", "decoder"):
+            inputs[label] = (value, loc, attn)
 
-    value, loc, attn = main
-    times = {
-        "ms": cuda_ms(lambda: dg.deform_gather(value, GDINO_LEVELS, loc, attn)),
-        "plain_ms": cuda_ms(lambda: dg.deform_gather_plain(value, GDINO_LEVELS, loc, attn)),
-        # no single PyTorch call computes this function: grid_sample samples
-        # one level and sums nothing
-        "library_ms": None,
-    }
-    B, Q, nh, L, P, _ = loc.shape
-    hd = value.shape[-1]
-    moved = (value.numel() + loc.numel() + attn.numel() + B * Q * nh * hd) * 4
-    flops = 2 * 4 * B * Q * nh * L * P * hd  # 4 corners, a multiply and an add each
-    bytes_ms, ops_ms = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    emit({"phase": "kernel_time", "kernel": "deform_gather", "shape": "encoder",
-          **times, "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-          "bytes": moved, "flops": flops})
+    time_deform_gather("decoder", inputs["decoder"][0], GDINO_LEVELS, *inputs["decoder"][1:])
+    times = time_deform_gather("encoder", inputs["encoder"][0], GDINO_LEVELS,
+                               *inputs["encoder"][1:])
     return {"name": "deform_gather", "route": "cuda",
             "source": "d3fields_tpu_torch/csrc/deform_gather.cu",
             "replaces": "d3fields_tpu/models/groundingdino/gather_pallas.py:238",
-            "max_abs_err": worst, **times, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "max_abs_err": worst, **times}
+
+
+def capture_gather_inputs(detector, images) -> dict:
+    """The gather inputs of the first encoder and the first decoder layer of
+    the detector's forward on ``images`` (the forward a segment_views
+    request runs), read through the forward's ``gather`` argument."""
+    from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
+    from d3fields_tpu_torch.models.groundingdino.detector import tokenize_classes
+
+    calls = []
+
+    def capture(value, shapes, loc, attn):
+        calls.append((value, tuple(shapes), loc, attn))
+        return deform_gather(value, shapes, loc, attn)
+
+    ids = np.repeat(tokenize_classes(SEG_QUERIES, tokenize)[0], len(images), axis=0)
+    with torch.no_grad():
+        detector.model(detector.prep(images), ids, gather=capture)
+    cfg = detector.model.cfg
+    check(len(calls) == cfg.encoder_layers + cfg.decoder_layers,
+          f"{len(calls)} gather calls in one forward")
+    return {"request_encoder": calls[0], "request_decoder": calls[cfg.encoder_layers]}
 
 
 def kernel_wrappers():
@@ -325,7 +510,22 @@ def serve(dev, num_requests: int = 3):
     obs = scene(seed=100)
     profile_stage("update", lambda: fus.update(obs))
     profile_stage("batch_eval", lambda: fus.batch_eval(pts, NAMES))
+    # the kernel on the inputs of one tile of a request (request 0's scene)
+    feats, idx, w = capture_interp_inputs(fus.state, torch.as_tensor(pts[:TILE], device=dev))
+    err, ok = compare(kernels.fused_weighted_interp(feats, idx, w),
+                      kernels.fused_weighted_interp_plain(feats, idx, w))
+    emit({"phase": "kernel_check", "kernel": "fused_weighted_interp", "shape": "request_tile",
+          "V": feats.shape[0], "P": feats.shape[1], "C": feats.shape[2], "N": idx.shape[1],
+          "max_abs_err": err, "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok})
+    check(ok, "fused_weighted_interp disagrees with its plain version on a request tile")
+    time_fused_weighted_interp("request_tile", feats, idx, w,
+                               valid_points=int((w.sum((0, 2)) > 0).sum()))
     return launches
+
+
+# the names of the port's CUDA kernels (csrc/*.cu) in a profiler trace
+PORT_KERNELS = ("fused_interp_slice_kernel", "fused_weighted_interp_kernel",
+                "deform_gather_kernel")
 
 
 def profile_stage(stage: str, fn, top: int = 12) -> None:
@@ -351,14 +551,19 @@ def profile_stage(stage: str, fn, top: int = 12) -> None:
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     by_name = collections.Counter()
     count = collections.Counter()
+    port = collections.defaultdict(list)  # each launch of the port's kernels
     for e in device:
         by_name[e["name"][:80]] += e["dur"] / 1e3
         count[e["name"][:80]] += 1
+        for kernel in PORT_KERNELS:
+            if kernel in e["name"]:
+                port[kernel].append(e["dur"] / 1e3)
     busy_ms = sum(by_name.values())
     emit({"phase": "profile", "stage": stage, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": len(device),
           "top": [{"name": k, "device_ms": v, "count": count[k]}
-                  for k, v in by_name.most_common(top)]})
+                  for k, v in by_name.most_common(top)],
+          "port_kernel_launch_ms": port})
 
 
 def verify_request(dev, state, pts, out, launched, tiles):
@@ -470,6 +675,8 @@ def segment(dev, num_requests: int = 3):
     then the card held to the plain gather and to the CPU, and one more
     request traced by torch.profiler."""
     from d3fields_tpu_torch.models.groundingdino import model as gd
+    from d3fields_tpu_torch.models.groundingdino.deform_gather import (
+        deform_gather, deform_gather_plain)
     from d3fields_tpu_torch.models.groundingdino.detector import GroundingDinoDetector
     from d3fields_tpu_torch.models.sam import model as sam
     from d3fields_tpu_torch.models.sam.predictor import SamPredictor
@@ -537,6 +744,15 @@ def segment(dev, num_requests: int = 3):
     hold_detector(detector, rigs[0])
     hold_sam(dev, detector, predictor, rigs[0], thr)
     profile_stage("segment_views", lambda: backend.segment_views(rigs[0], SEG_QUERIES, [thr]))
+    # the kernel on the inputs of request 0's first encoder and decoder layers
+    for label, (value, shapes, loc, attn) in capture_gather_inputs(detector, rigs[0]).items():
+        err, ok = compare(deform_gather(value, shapes, loc, attn),
+                          deform_gather_plain(value, shapes, loc, attn))
+        emit({"phase": "kernel_check", "kernel": "deform_gather", "shape": label,
+              "Q": loc.shape[1], "max_abs_err": err, "rtol": KERNEL_RTOL,
+              "atol": KERNEL_ATOL, "ok": ok})
+        check(ok, f"deform_gather disagrees with its plain version on {label}")
+        time_deform_gather(label, value, shapes, loc, attn)
     return counts["deform_gather"]
 
 
@@ -602,6 +818,7 @@ def hold_detector(detector, images) -> None:
     """The kernel's forward against the plain gather's on the card (4
     views), and against the CPU for view 0 alone."""
     from d3fields_tpu_torch.models.groundingdino import model as gd
+    from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather_plain
     from d3fields_tpu_torch.models.groundingdino.detector import tokenize_classes
 
     model = detector.model
@@ -609,7 +826,7 @@ def hold_detector(detector, images) -> None:
     pixels = detector.prep(images)
     card = detector_intermediates(model, pixels, ids)
     compare_detections("plain_gather_on_card", card,
-                       detector_intermediates(model, pixels, ids, gather="plain"))
+                       detector_intermediates(model, pixels, ids, gather=deform_gather_plain))
     cpu_model = gd.GroundingDino(model.cfg, device="cpu").eval()
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     t0 = time.perf_counter()

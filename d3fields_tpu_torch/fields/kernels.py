@@ -6,7 +6,9 @@ Counterpart of ``d3fields_tpu/fields/kernels.py:56-165, 259-369``:
   name. On a CUDA tensor it launches ``csrc/fused_interp.cu`` (built with
   nvcc on first use) or raises; on a CPU tensor it runs the plain PyTorch
   version :func:`fused_weighted_interp_plain`, which is also the kernel's
-  oracle on the card.
+  oracle on the card. The kernel has two routes, one launch either way:
+  channel slices of the whole table staged in shared memory, or a direct
+  gather from L2; :func:`slice_channels` picks one.
 - :func:`eval_field_fused` is ``fusion.eval_field`` with every patch-grid
   descriptor map fused through that kernel. The nearest-depth visibility
   tap and the full-resolution mask/colour taps were XLA gathers in the JAX
@@ -29,11 +31,32 @@ from d3fields_tpu_torch.fields import geometry
 Tensor = torch.Tensor
 
 
+# dynamic shared memory one block of an H100 (sm_90) may opt in to
+SMEM_PER_BLOCK = 232_448
+# the shared-memory route's slice widths, in channels, widest first
+SLICE_CHANNELS = (16, 8)
+
+
 def _kernel():
     fn = _build.load("fused_interp").d3f_fused_weighted_interp
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def slice_channels(V: int, P: int, C: int) -> int:
+    """The kernel's route for a (V, P, C) table: the channels per slice of
+    the shared-memory route (16 or 8: the widest whose V*P rows fit in
+    one block's shared memory, and no wider than C), or 0 for the direct
+    gather, where C % 4 != 0 or not even an 8-channel slice fits. On an
+    H100 that is the fastest route at each shape timed (PERF.md): 4-channel
+    slices lost to the direct gather wherever they fit."""
+    if C % 4:
+        return 0
+    for cs in SLICE_CHANNELS:
+        if cs <= C and V * P * cs * 4 <= SMEM_PER_BLOCK:
+            return cs
+    return 0
 
 
 def fused_weighted_interp_plain(feats: Tensor, idx: Tensor, w: Tensor) -> Tensor:
@@ -91,10 +114,12 @@ def fused_weighted_interp(feats: Tensor, idx: Tensor, w: Tensor) -> Tensor:
     out = torch.empty((N, C), dtype=torch.float32, device=feats.device)
     if N == 0 or C == 0:
         return out
+    # the shared-memory route copies the table 16 bytes at a time
+    cs = slice_channels(V, P, C) if feats.data_ptr() % 16 == 0 else 0
     with torch.cuda.device(feats.device):
         err = _kernel()(
             feats.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            V, P, N, C, torch.cuda.current_stream().cuda_stream,
+            V, P, N, C, cs, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"fused_weighted_interp launch failed: CUDA error {err}")

@@ -12,6 +12,9 @@ deformable_gather_pallas`` and of the function it computes,
   4-corner tables, its 8-query groups and lane-packed weights are not
   carried over, and neither are its limits (f32 tables of width
   4*hd == 128, ``query_tile % 8``, one view per call).
+- The kernel's warps walk (batch, query, head) head-major: neighbouring
+  warps hold neighbouring queries of one head, which is faster on the card
+  than the heads of one query side by side (PERF.md).
 """
 
 from __future__ import annotations
@@ -37,14 +40,14 @@ def _kernel():
 
 @functools.lru_cache(maxsize=16)
 def _level_table(shapes: Tuple[Tuple[int, int], ...], device: torch.device) -> Tensor:
-    """The kernel's (L, 3) int64 rows of (h, w, level_start) on ``device``,
-    uploaded once per level layout: a copy from the host would wait for
-    the card at every launch."""
+    """The kernel's (L, 4) int32 rows of (h, w, level_start, 0) on
+    ``device``, uploaded once per level layout: a copy from the host would
+    wait for the card at every launch."""
     levels, start = [], 0
     for h, w in shapes:
-        levels.append((h, w, start))
+        levels.append((h, w, start, 0))
         start += h * w
-    return torch.tensor(levels, dtype=torch.int64, device=device)
+    return torch.tensor(levels, dtype=torch.int32, device=device)
 
 
 def deform_gather_plain(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -108,6 +111,9 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
         raise ValueError(f"no kernel for device {value.device}")
     if not (value.is_contiguous() and loc.is_contiguous() and attn.is_contiguous()):
         raise ValueError("the kernel takes contiguous value, loc and attn")
+    if S >= 2 ** 31 or Q * nh >= 2 ** 31 or B >= 2 ** 16 or nh >= 2 ** 16:
+        raise ValueError(f"the kernel indexes with int32 and a (Q, nh, B) grid: "
+                         f"B={B}, S={S}, Q={Q}, nh={nh} are too large")
     out = torch.empty((B, Q, nh * hd), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
         return out

@@ -14,8 +14,8 @@ selection, and the cross-modality decoder with iterative box refinement.
 - Both deformable-attention sites, the 6 encoder layers (Q = S) and the 6
   decoder layers (Q = 900), sample through
   :func:`deform_gather.deform_gather`: the CUDA kernel on the card. The
-  forward's ``gather="plain"`` runs the same forward through the kernel's
-  plain version, as an oracle.
+  forward's ``gather=deform_gather_plain`` runs the same forward through the
+  kernel's plain version, as an oracle.
 - Everything runs in float32. Host-side constants (sine tables, reference
   grids, proposals, text masks) are numpy copies of the JAX package's, so
   they are its values to the bit.
@@ -35,9 +35,7 @@ from torch import nn
 from d3fields_tpu_torch.models.common import embedding, linear, named
 from d3fields_tpu_torch.models.groundingdino import bert as B
 from d3fields_tpu_torch.models.groundingdino import swin as SW
-from d3fields_tpu_torch.models.groundingdino.deform_gather import (
-    deform_gather, deform_gather_plain,
-)
+from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -452,18 +450,21 @@ class GroundingDino(nn.Module):
             maps.append(_group_norm32(x, gn.weight, gn.bias))
         return maps
 
-    def forward(self, pixels: Tensor, input_ids: np.ndarray, gather: Optional[str] = None):
+    def forward(self, pixels: Tensor, input_ids: np.ndarray,
+                gather: Optional[Gather] = None):
         """pixels (B, H, W, 3) normalised; input_ids (B, Lt) host integers.
 
         Returns (logits (B, num_queries, max_text_len), boxes
         (B, num_queries, 4) normalised cxcywh), the contract of
-        ``GroundingDinoForObjectDetection``. ``gather="plain"`` samples the
-        deformable attention with the kernel's plain version instead of
-        :func:`deform_gather` (an oracle for the kernel on the card).
+        ``GroundingDinoForObjectDetection``. ``gather``, a callable with
+        :func:`deform_gather`'s signature, takes the place of
+        :func:`deform_gather` in every layer: :func:`deform_gather_plain` as
+        an oracle for the kernel on the card, or a wrapper that reads the
+        layers' gather inputs.
         """
-        if gather not in (None, "plain"):
-            raise ValueError(f"gather must be None or 'plain', got {gather!r}")
-        gather_fn = deform_gather_plain if gather == "plain" else deform_gather
+        if gather is not None and not callable(gather):
+            raise TypeError(f"gather must be None or a callable, got {gather!r}")
+        gather_fn = deform_gather if gather is None else gather
         cfg, m, dev = self.cfg, self.model, pixels.device
         ids_np = np.asarray(input_ids)
         self_mask_np, pos_np = generate_text_masks(ids_np)

@@ -103,10 +103,15 @@ def test_codecs_and_grid_match_jax(rng):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(e))
 
 
-@pytest.mark.parametrize("V", [3, 1])
-def test_fused_weighted_interp_plain_matches_pallas(rng, V):
+@pytest.mark.parametrize("V, h, w, C", [
+    pytest.param(3, 6, 8, 130, id="3"),
+    pytest.param(1, 6, 8, 130, id="1"),
+    # a patch grid too large for the kernel's shared-memory slices (P = 4,800)
+    pytest.param(4, 60, 80, 12, id="large_grid"),
+])
+def test_fused_weighted_interp_plain_matches_pallas(rng, V, h, w, C):
     """tests/test_kernels.py:27-48's shapes: taps fall outside the map."""
-    h, w, C, N = 6, 8, 130, 77
+    N = 77
     H, W = 48, 64
     feats = rng.standard_normal((V, h * w, C)).astype(np.float32)
     xy = rng.uniform(-5, 70, size=(V, N, 2)).astype(np.float32)
@@ -128,6 +133,23 @@ def test_fused_weighted_interp_out_of_range_taps_contribute_nothing():
     w = torch.tensor([[[1.0, 2.0, 5.0, 7.0]]])
     out = tkernels.fused_weighted_interp(feats, idx, w)
     np.testing.assert_array_equal(_np(out), _np(feats[0, 0] + 2 * feats[0, 2])[None])
+
+
+@pytest.mark.parametrize("V, P, C, expected", [
+    (4, 24 * 32, 1024, 16),  # the field query: 192 KB slices, one block per SM
+    (4, 30 * 40, 256, 8),  # 16-channel slices would take 300 KB
+    (4, 48 * 64, 1024, 0),  # only 4-channel slices would fit: slower than direct
+    (4, 60 * 80, 1024, 0),  # no slice fits: the direct route
+    (3, 48, 130, 0),  # C % 4 != 0: the direct route
+    (2, 48, 8, 8),  # no slice is wider than C
+    (1, 48, 4, 0),  # no slice is as narrow as C
+    (1, 3632, 16, 16),  # 232,448 B: the most one block may use
+    (1, 3633, 16, 8),
+])
+def test_slice_channels_picks_the_widest_slice_that_fits(V, P, C, expected):
+    assert tkernels.slice_channels(V, P, C) == expected
+    if expected:
+        assert V * P * expected * 4 <= tkernels.SMEM_PER_BLOCK
 
 
 def test_fused_weighted_interp_rejects_what_the_kernel_does_not_take():
@@ -238,10 +260,19 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V, C, N", [(3, 130, 77), (1, 130, 77), (4, 1024, 4096)])
-def test_fused_weighted_interp_kernel_matches_plain(cuda, V, C, N):
+@pytest.mark.parametrize("V, h, w, C, N", [
+    (3, 6, 8, 130, 77),  # C % 4 != 0: direct route
+    (1, 6, 8, 130, 77),
+    (4, 6, 8, 1024, 4096),  # 16-channel slices
+    (3, 6, 8, 132, 300),  # a ragged last slice
+    (4, 24, 32, 1024, 4096),  # the field query's table
+    (4, 30, 40, 64, 2000),  # 8-channel slices
+    (4, 30, 40, 12, 2000),  # 8-channel slices, a ragged last slice
+    (4, 60, 80, 64, 2000),  # no slice fits: direct route
+])
+def test_fused_weighted_interp_kernel_matches_plain(cuda, V, h, w, C, N):
     rng = np.random.default_rng(0)
-    h, w, H, W = 6, 8, 48, 64
+    H, W = 48, 64
     feats = torch.as_tensor(rng.standard_normal((V, h * w, C)).astype(np.float32), device=cuda)
     xy = torch.as_tensor(rng.uniform(-5, 70, size=(V, N, 2)).astype(np.float32), device=cuda)
     vw = torch.as_tensor(rng.uniform(0, 1, size=(V, N)).astype(np.float32), device=cuda)

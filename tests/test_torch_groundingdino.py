@@ -53,23 +53,42 @@ def oracle():
     return sd, jparams, port.eval(), cfg
 
 
-def _gather_case(B, levels, nh, hd, P, Q, loc_range, seed):
+def _gather_case(B, levels, nh, hd, P, Q, loc_range, seed, nan_share=0.0):
     rs = np.random.RandomState(seed)
     S = sum(h * w for h, w in levels)
     value = rs.randn(B, S, nh, hd).astype(np.float32)
     loc = rs.uniform(*loc_range, (B, Q, nh, len(levels), P, 2)).astype(np.float32)
+    loc[rs.uniform(size=loc.shape) < nan_share] = np.nan
     wgt = rs.rand(B, Q, nh, len(levels), P).astype(np.float32)
     return value, loc, wgt / wgt.sum(axis=(-2, -1), keepdims=True)
 
 
-@pytest.mark.parametrize("B, levels, nh, hd, P, Q, loc_range", [
+# the shapes the kernel's routes branch on (csrc/deform_gather.cu): corner
+# rows of hd/4 float4 lanes, or of hd floats when hd % 4 != 0; rounds of 32
+# samples; NaN positions (NaN rows on the CPU and in JAX; zeros on the card,
+# as CUDA's grid_sample gives)
+GATHER_CASES = {
     # tests/test_groundingdino.py:465-473: samples out of bounds, padded query tail
-    (2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333, (-0.2, 1.2)),
+    "edge": (2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333, (-0.2, 1.2), 0.0),
     # hd not a multiple of 4, one level, samples far outside [0, 1]
-    (1, ((11, 6),), 3, 6, 3, 40, (-3.0, 4.0)),
-], ids=["edge", "odd_hd"])
-def test_deform_gather_matches_jax_core_and_pallas_kernel(B, levels, nh, hd, P, Q, loc_range):
-    value, loc, wgt = _gather_case(B, levels, nh, hd, P, Q, loc_range, seed=7)
+    "odd_hd": (1, ((11, 6),), 3, 6, 3, 40, (-3.0, 4.0), 0.0),
+    # 3 lanes per corner row: 10 lane groups and 2 idle lanes
+    "hd12": (1, ((9, 11), (5, 6)), 4, 12, 4, 40, (-0.2, 1.2), 0.0),
+    # the detector's heads and width at a small map
+    "hd32_nh8": (1, ((9, 11), (5, 6), (3, 3)), 8, 32, 4, 24, (-0.2, 1.2), 0.0),
+    # L*P = 48 > 32 lanes: two rounds of the index phase
+    "lp48": (1, ((9, 11), (5, 6), (3, 3)), 2, 8, 16, 24, (-0.2, 1.2), 0.0),
+    # NaN positions and samples far outside [0, 1]
+    "nan": (1, ((9, 11), (5, 6)), 2, 8, 4, 40, (-3.0, 4.0), 0.05),
+}
+
+
+@pytest.mark.parametrize("B, levels, nh, hd, P, Q, loc_range, nan_share",
+                         list(GATHER_CASES.values()), ids=list(GATHER_CASES))
+def test_deform_gather_matches_jax_core_and_pallas_kernel(B, levels, nh, hd, P, Q, loc_range,
+                                                          nan_share):
+    value, loc, wgt = _gather_case(B, levels, nh, hd, P, Q, loc_range, seed=7,
+                                   nan_share=nan_share)
     got = tdg.deform_gather(torch.as_tensor(value), levels, torch.as_tensor(loc),
                             torch.as_tensor(wgt)).numpy()
     assert got.shape == (B, Q, nh * hd)
@@ -103,17 +122,18 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_deform_gather_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_deform_gather_kernel_matches_plain(cuda, case):
+    B, levels, nh, hd, P, Q, loc_range, nan_share = GATHER_CASES[case]
     value, loc, wgt = (torch.as_tensor(a, device=cuda) for a in
-                       _gather_case(2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333,
-                                    (-0.2, 1.2), seed=1))
-    levels = ((13, 17), (7, 9), (4, 5))
+                       _gather_case(B, levels, nh, hd, P, Q, loc_range, seed=1,
+                                    nan_share=nan_share))
     before = tdg.deform_gather.launches
     out = tdg.deform_gather(value, levels, loc, wgt)
     torch.cuda.synchronize()
     assert tdg.deform_gather.launches == before + 1
     torch.testing.assert_close(out, tdg.deform_gather_plain(value, levels, loc, wgt),
-                               rtol=1e-4, atol=1e-5)
+                               rtol=1e-4, atol=1e-5, equal_nan=True)
 
 
 def test_bert_matches_jax():
@@ -187,16 +207,40 @@ def test_full_forward_matches_jax(oracle):
 
 def test_forward_with_the_plain_gather_is_the_same_forward(oracle):
     """On the CPU the default gather is the plain version, so
-    ``gather="plain"`` must not change a bit; other values are refused."""
+    ``gather=deform_gather_plain`` must not change a bit; a gather that is
+    not callable is refused."""
     _, _, port, _ = oracle
     px = torch.as_tensor(np.random.RandomState(1).randn(1, 64, 64, 3).astype(np.float32))
     with torch.no_grad():
         a = port(px, IDS)
-        b = port(px, IDS, gather="plain")
+        b = port(px, IDS, gather=tdg.deform_gather_plain)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
-    with pytest.raises(ValueError, match="gather"):
-        port(px, IDS, gather="pallas")
+    with pytest.raises(TypeError, match="gather"):
+        port(px, IDS, gather="plain")
+
+
+def test_forward_takes_a_gather_callable_in_every_layer(oracle):
+    """A callable ``gather`` replaces the gather of all the encoder's and
+    the decoder's deformable attentions, and sees their inputs."""
+    _, _, port, cfg = oracle
+    px = torch.as_tensor(np.random.RandomState(1).randn(1, 64, 64, 3).astype(np.float32))
+    calls = []
+
+    def capture(value, shapes, loc, attn):
+        calls.append((tuple(value.shape), tuple(shapes), tuple(loc.shape)))
+        return tdg.deform_gather_plain(value, shapes, loc, attn)
+
+    with torch.no_grad():
+        a = port(px, IDS)
+        b = port(px, IDS, gather=capture)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    assert len(calls) == cfg.encoder_layers + cfg.decoder_layers
+    S = calls[0][0][1]
+    assert {c[2][1] for c in calls[:cfg.encoder_layers]} == {S}
+    assert {c[2][1] for c in calls[cfg.encoder_layers:]} == {cfg.num_queries}
+    assert all(sum(h * w for h, w in c[1]) == S for c in calls)
 
 
 def test_load_jax_params_equals_native_load(oracle):
