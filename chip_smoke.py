@@ -18,15 +18,28 @@ seeded generators:
 2. first-frame open-text segmentation: GroundingDINO swin-T + SAM ViT-H
    behind ``GroundedSAMBackend.segment_views`` on a 4-view 240x320 rig,
    3 requests; then the detector's forward held to the plain gather on the
-   card and to the CPU, and SAM's decoder and encoder held to the CPU.
+   card and to the CPU, and SAM's decoder and encoder held to the CPU;
+3. ``golden``: the apps ``vis_repr`` and ``vis_tracking`` at the arguments
+   of the committed goldens, held to tests/golden/*.npz;
+4. ``vis_repr`` at full width (``--synthetic --feat_dim 1024 --step
+   0.004``: 2,445,000 grid points), each stage timed, the mesh held to the
+   port's own CPU run;
+5. ``vis_repr_backends``: the same app with the DINOv2 backbone of 1. and
+   the GroundedSAM backend of 2. on the synthetic rig's colour and depth;
+6. ``tracking``: vis_tracking's staged loop at full width (4 frames of 4
+   views at 240x320, 1,024-d descriptors, 100 keypoints per instance from
+   a 36M-point grid, 100 Adam steps a frame), the recovered drift checked
+   and frame 0's keypoints held to the CPU's.
 
 Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
-kernels. After the counted requests, one more request of each path is
-traced with torch.profiler for the device time by kernel and the device's
-idle share (traces under build/traces/), and each kernel is held and timed
-on the inputs a request gives it: one field-query tile, and the first
-encoder and decoder layers of one detection.
+kernels (the tracking path has none: its loss differentiates the unfused
+field query, as in the JAX package). After the counted requests, one more
+request of each path is traced with torch.profiler for the device time by
+kernel and the device's idle share (traces under build/traces/), and each
+kernel is held and timed on the inputs a request gives it: one field-query
+tile, and the first encoder and decoder layers of one detection. The
+apps write their outputs under build/chip_smoke/.
 
 Output: one JSON object per phase, then the ``kernels`` line, then the
 card's name and power limit as nvidia-smi gives them, and as the last line
@@ -37,7 +50,9 @@ TF32 is off for matmul and cuDNN, so every comparison is in full float32.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -307,7 +322,7 @@ GATHER_SHAPES = {
     "lp48": (2, ((13, 17), (7, 9), (4, 5)), 8, 32, 16, 300, (-0.2, 1.2), 0.0),
     # hd = 160: 40 float4s per corner row, two channel passes of the warp
     "hd160": (1, ((13, 17), (7, 9)), 2, 160, 4, 200, (-0.2, 1.2), 0.0),
-    # samples far outside [0, 1] and NaN positions (NaN rows, as grid_sample)
+    # samples far outside [0, 1] and NaN positions (NaN rows, equal to the CPU's)
     "far_nan": (2, ((13, 17), (7, 9), (4, 5)), 8, 32, 4, 333, (-3.0, 4.0), 0.01),
     # hd not a multiple of 4 (scalar route), one level, samples far outside [0, 1]
     "odd_hd": (2, ((23, 31),), 3, 6, 3, 1000, (-3.0, 4.0), 0.0),
@@ -388,10 +403,19 @@ def check_deform_gather(dev):
         torch.cuda.synchronize()
         ref = dg.deform_gather_plain(value, levels, loc, attn)
         err, ok = compare(out, ref)
+        nan_rows = {}
+        if nan_share:
+            # NaN rows where a sample position is NaN, as on the CPU and in JAX
+            cpu = dg.deform_gather_plain(value.cpu(), levels, loc.cpu(), attn.cpu())
+            nan_rows = {"nan_rows": int(torch.isnan(ref).any(-1).sum()),
+                        "nan_rows_cpu": int(torch.isnan(cpu).any(-1).sum()),
+                        "nan_equal_cpu": bool(torch.equal(torch.isnan(out).cpu(),
+                                                          torch.isnan(cpu)))}
+            check(nan_rows["nan_equal_cpu"] and nan_rows["nan_rows_cpu"] > 0,
+                  f"deform_gather's NaN rows differ from the CPU's at {label}: {nan_rows}")
         emit({"phase": "kernel_check", "kernel": "deform_gather", "shape": label, "B": B,
               "levels": levels, "nh": nh, "hd": hd, "P": P, "Q": Q,
-              "route": "float4" if hd % 4 == 0 else "float",
-              "nan_rows": int(torch.isnan(ref).any(-1).sum()), "max_abs_err": err,
+              "route": "float4" if hd % 4 == 0 else "float", **nan_rows, "max_abs_err": err,
               "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok})
         check(ok, f"deform_gather disagrees with its plain version at {label}")
         worst = max(worst, err)
@@ -447,7 +471,8 @@ def launch_counts() -> dict:
 
 def serve(dev, num_requests: int = 3):
     """The main path at full width: 3 requests of update + batch_eval,
-    then one more request traced by torch.profiler."""
+    then one more request traced by torch.profiler. Returns the launches
+    and the DINOv2 backbone."""
     from d3fields_tpu_torch import D3FieldsConfig, FusionConfig, Fusion
     from d3fields_tpu_torch.fields import kernels
     from d3fields_tpu_torch.models import dinov2
@@ -520,7 +545,7 @@ def serve(dev, num_requests: int = 3):
     check(ok, "fused_weighted_interp disagrees with its plain version on a request tile")
     time_fused_weighted_interp("request_tile", feats, idx, w,
                                valid_points=int((w.sum((0, 2)) > 0).sum()))
-    return launches
+    return launches, backbone
 
 
 # the names of the port's CUDA kernels (csrc/*.cu) in a profiler trace
@@ -673,7 +698,7 @@ def segment(dev, num_requests: int = 3):
     (random weights from seeded generators) behind
     ``GroundedSAMBackend.segment_views``, 3 requests of a 4-view 240x320 rig;
     then the card held to the plain gather and to the CPU, and one more
-    request traced by torch.profiler."""
+    request traced by torch.profiler. Returns the launches and the backend."""
     from d3fields_tpu_torch.models.groundingdino import model as gd
     from d3fields_tpu_torch.models.groundingdino.deform_gather import (
         deform_gather, deform_gather_plain)
@@ -753,7 +778,7 @@ def segment(dev, num_requests: int = 3):
               "atol": KERNEL_ATOL, "ok": ok})
         check(ok, f"deform_gather disagrees with its plain version on {label}")
         time_deform_gather(label, value, shapes, loc, attn)
-    return counts["deform_gather"]
+    return counts["deform_gather"], backend
 
 
 def detector_intermediates(model, pixels, ids, gather=None):
@@ -886,6 +911,335 @@ def hold_sam(dev, detector, predictor, images, thr) -> None:
           "SAM image embedding on the card vs the CPU")
 
 
+# ---------------------------------------------------------------------------
+# slice 4: the two headline apps, vis_repr and vis_tracking
+# ---------------------------------------------------------------------------
+
+OUT = os.path.join("build", "chip_smoke")
+# the goldens' app arguments (tools/gen_golden.py:51,57-58)
+GOLDEN_VIS_REPR_ARGS = ["--synthetic", "--step", "0.015"]
+GOLDEN_VIS_TRACKING_FAST_ARGS = ["--synthetic", "--frames", "2", "--num_kypts", "8",
+                                 "--iters", "10"]
+# tests/test_golden.py:42-56 (triangles identical) and 115-128
+VIS_REPR_ATOL = {"dist": 1e-4, "vertices": 1e-3, "mask": 1e-4, "color": 1e-3,
+                 "desc_pca": 1e-3}
+VIS_TRACKING_ATOL = {"src_pts": 1e-6, "match_pts": 5e-4, "loss_history": 1e-5}
+# The tracking phase's drift check, tests/test_tracking.py:102's 4e-3 on the
+# recovered translation of each frame. The synthetic scene's 1,024-d
+# descriptors (sines of 25x random projections) vary on a sub-centimetre
+# scale, so 100 Adam steps at lr 0.01 end a few mm off the drift: on an H100
+# 1.2-2.9 mm, the same in every run; a CPU's other summation order ends
+# 1.6-4.8 mm off (PERF.md).
+TRACK_DRIFT_ATOL = 4e-3
+TRACK_DRIFT = np.array([[0.008, 0.004, 0.0], [-0.005, 0.006, 0.0]])  # vis_tracking.py:104-105
+VIS_REPR_STEP = 0.004  # vis_repr.py:45's default
+
+
+def reset_and_count(fn):
+    """``fn()`` with every launch counter set to 0 just before it; returns
+    (fn's result, the counts just after)."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def max_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def held(label: str, got: dict, want: dict, atol: dict) -> dict:
+    """Max abs errors of ``got`` against ``want`` for the keys of ``atol``;
+    fails unless every shape agrees and every error is within its atol."""
+    errs = {}
+    for k, tol in atol.items():
+        check(np.shape(got[k]) == np.shape(want[k]),
+              f"{label} {k}: shape {np.shape(got[k])} != {np.shape(want[k])}")
+        errs[k] = max_err(got[k], want[k])
+        check(errs[k] <= tol, f"{label} {k}: max abs error {errs[k]} > {tol}")
+    return errs
+
+
+def tracking_outputs(out: str, frames: int) -> dict:
+    """vis_tracking's pickles, as tests/test_golden.py reads them."""
+    import pickle
+
+    match, losses = [], []
+    for t in range(frames):
+        with open(os.path.join(out, f"match_pts_{t:06d}.pkl"), "rb") as f:
+            match.append(np.stack(pickle.load(f)).astype(np.float32))
+        with open(os.path.join(out, f"loss_hist_{t:06d}.pkl"), "rb") as f:
+            losses.append(np.asarray(pickle.load(f), np.float32))
+    with open(os.path.join(out, "src_feats.pkl"), "rb") as f:
+        info = pickle.load(f)
+    return {"match_pts": np.stack(match), "loss_history": np.stack(losses),
+            "src_pts": np.stack([info[k]["src_pts"] for k in sorted(info)]).astype(np.float32)}
+
+
+def golden(dev) -> dict:
+    """The port's two apps on the card at the goldens' arguments, held to
+    tests/golden/*.npz at the goldens' tolerances."""
+    from d3fields_tpu_torch.apps import vis_repr, vis_tracking
+
+    out = os.path.join(OUT, "golden")
+    dump = os.path.join(out, "vis_repr.npz")
+    t0 = time.perf_counter()
+    code, counts = reset_and_count(lambda: vis_repr.main(
+        GOLDEN_VIS_REPR_ARGS + ["--out", os.path.join(out, "vis_repr"), "--dump_arrays", dump],
+        device=dev))
+    seconds = time.perf_counter() - t0
+    check(code == 0, "vis_repr exited with an error")
+    got = dict(np.load(dump))
+    want = dict(np.load(os.path.join("tests", "golden", "vis_repr.npz")))
+    check(np.array_equal(got["triangles"], want["triangles"]), "vis_repr golden: triangles")
+    errs = held("vis_repr golden", got, want, VIS_REPR_ATOL)
+    check(counts["fused_weighted_interp"] > 0 and counts["deform_gather"] == 0,
+          f"vis_repr golden launch counts {counts}")
+    emit({"phase": "golden", "app": "vis_repr", "args": GOLDEN_VIS_REPR_ARGS,
+          "max_abs_err": errs, "atol": VIS_REPR_ATOL, "triangles_identical": True,
+          "vertices": int(got["vertices"].shape[0]), "launches": counts, "seconds": seconds})
+
+    track = os.path.join(out, "vis_tracking")
+    t0 = time.perf_counter()
+    code, tcounts = reset_and_count(lambda: vis_tracking.main(
+        GOLDEN_VIS_TRACKING_FAST_ARGS + ["--out", track], device=dev))
+    seconds = time.perf_counter() - t0
+    check(code == 0, "vis_tracking exited with an error")
+    want = dict(np.load(os.path.join("tests", "golden", "vis_tracking_fast.npz")))
+    errs = held("vis_tracking golden", tracking_outputs(track, 2), want, VIS_TRACKING_ATOL)
+    emit({"phase": "golden", "app": "vis_tracking", "args": GOLDEN_VIS_TRACKING_FAST_ARGS,
+          "max_abs_err": errs, "atol": VIS_TRACKING_ATOL, "launches": tcounts,
+          "seconds": seconds})
+    return {k: counts[k] + tcounts[k] for k in counts}
+
+
+@contextlib.contextmanager
+def timed_function(module, name: str, times: dict):
+    """Replaces ``module.name`` with a version that appends its host
+    milliseconds between synchronisations to ``times[name]``, and puts the
+    original back on exit."""
+    original = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def vis_repr_run(fusion, obs, queries, thresholds, boundaries, label: str) -> dict:
+    """``vis_repr.run`` at ``vis_repr.py``'s default step, with smoothing and
+    marching tetrahedra timed apart."""
+    from d3fields_tpu_torch.apps import vis_repr
+    from d3fields_tpu_torch.mesh import _native, smoothing
+
+    times = {}
+    with timed_function(smoothing, "smooth_volume", times), \
+            timed_function(_native, "marching_tetrahedra", times):
+        res = vis_repr.run(fusion, obs, queries, thresholds, boundaries, VIS_REPR_STEP,
+                           os.path.join(OUT, label))
+    res["stage_ms"] = {**{k: v * 1e3 for k, v in res["seconds"].items()},
+                       "smoothing": sum(times["smooth_volume"]),
+                       "marching_tetrahedra": sum(times["marching_tetrahedra"])}
+    return res
+
+
+def vis_repr_arrays(res) -> dict:
+    """The golden's arrays from a ``vis_repr.run`` result, on the host."""
+    from d3fields_tpu_torch.ops.pca import pca_transform
+
+    vout = res["vertex_query"]
+    return {"dist": res["grid"]["dist"].cpu().numpy(), "vertices": res["vertices"],
+            "triangles": res["triangles"], "mask": vout["mask"].cpu().numpy(),
+            "color": vout["color_tensor"].cpu().numpy(),
+            "desc_pca": pca_transform(vout["dino_feats"], res["pca"]).cpu().numpy()}
+
+
+def vis_repr_full(dev) -> dict:
+    """``vis_repr --synthetic --feat_dim 1024 --step 0.004`` on the card:
+    stage times, the launch counts of the vertex query, one profiled run,
+    and the mesh held to the port's own CPU run at the goldens' tolerances."""
+    from d3fields_tpu_torch import Fusion, FusionConfig
+    from d3fields_tpu_torch.apps import vis_repr
+
+    obs, queries, thresholds, boundaries, backend = vis_repr.synthetic_inputs(4, 1024)
+
+    def app(device):
+        backend.reset()
+        fusion = Fusion(num_cam=4, mask_backend=backend, device=device)
+        return vis_repr_run(fusion, obs, queries, thresholds, boundaries, f"vis_repr_{device}")
+
+    app(dev)  # warm-up: allocator and cuBLAS
+    res, counts = reset_and_count(lambda: app(dev))
+    tile = FusionConfig().query_tile
+    nv = res["vertices"].shape[0]
+    check(counts["fused_weighted_interp"] == -(-nv // tile) and counts["deform_gather"] == 0,
+          f"vis_repr launched {counts} for {nv} vertices in tiles of {tile}")
+    check(bool(torch.isfinite(res["grid"]["dist"]).all()), "vis_repr grid dist is not finite")
+    got = vis_repr_arrays(res)
+    t0 = time.perf_counter()
+    cpu = vis_repr_arrays(app(torch.device("cpu")))
+    cpu_seconds = time.perf_counter() - t0
+    check(np.array_equal(got["triangles"], cpu["triangles"]), "vis_repr triangles card vs CPU")
+    errs = held("vis_repr card vs CPU", got, cpu, VIS_REPR_ATOL)
+    emit({"phase": "vis_repr", "args": ["--synthetic", "--feat_dim", "1024", "--step",
+                                        str(VIS_REPR_STEP)],
+          "grid_points": int(got["dist"].shape[0]), "vertices": nv,
+          "triangles": int(got["triangles"].shape[0]), "labels": res["labels"],
+          "stage_ms": res["stage_ms"], "wall_ms": sum(res["seconds"].values()) * 1e3,
+          "launches": counts, "card_vs_cpu_max_abs_err": errs, "triangles_identical": True,
+          "cpu_seconds": cpu_seconds})
+    profile_stage("vis_repr", lambda: app(dev))
+    return counts
+
+
+def vis_repr_backends(dev, backbone, seg_backend) -> dict:
+    """``vis_repr.run`` with the real-data backends (random weights): DINOv2
+    ViT-L/14 features and GroundingDINO + SAM masks on the synthetic rig's
+    colour and depth, the box threshold picked on that rig as segment()
+    picks it."""
+    from d3fields_tpu_torch import Fusion
+    from d3fields_tpu_torch.apps import vis_repr
+
+    obs, _, _, boundaries, _ = vis_repr.synthetic_inputs(4, 1024)
+    obs = {k: obs[k] for k in ("color", "depth", "pose", "K")}
+    # the facade hands the backend RGB; the obs colour is BGR
+    thr, _ = pick_box_threshold(seg_backend.detector,
+                                [np.ascontiguousarray(obs["color"][..., ::-1])])
+    fusion = Fusion(num_cam=4, feature_backend=backbone, mask_backend=seg_backend, device=dev)
+
+    def app():
+        return vis_repr_run(fusion, obs, SEG_QUERIES, [thr], boundaries, "vis_repr_backends")
+
+    res, counts = reset_and_count(app)
+    gcfg = seg_backend.detector.model.cfg
+    check(counts["fused_weighted_interp"] > 0 and
+          counts["deform_gather"] == gcfg.encoder_layers + gcfg.decoder_layers,
+          f"vis_repr_backends launch counts {counts}")
+    check(bool(torch.isfinite(res["grid"]["dist"]).all()), "vis_repr_backends dist not finite")
+    check(res["vertices"].shape[0] > 0 and res["triangles"].shape[0] > 0, "empty mesh")
+    check(res["labels"][0] == "background", f"consensus labels {res['labels']}")
+    emit({"phase": "vis_repr_backends", "queries": SEG_QUERIES, "box_threshold": thr,
+          "boxes_per_view": [len(vm.labels) - 1 for vm in fusion.view_masks],
+          "labels": res["labels"], "vertices": int(res["vertices"].shape[0]),
+          "stage_ms": res["stage_ms"], "wall_ms": sum(res["seconds"].values()) * 1e3,
+          "launches": counts})
+    profile_stage("vis_repr_backends", app)
+    return counts
+
+
+def tracking(dev) -> dict:
+    """vis_tracking's staged loop at full width: 4 frames of the drifting
+    spheres at 240x320 with 1,024-d descriptors, 100 keypoints per instance
+    at res 0.002, ``TrackingConfig()`` (100 Adam steps) at every frame."""
+    from d3fields_tpu_torch import Fusion
+    from d3fields_tpu_torch.apps.vis_tracking import SYNTHETIC_BOUNDARIES, synthetic_frame
+    from d3fields_tpu_torch.config import TrackingConfig
+    from d3fields_tpu_torch.fields.geometry import create_grid
+    from d3fields_tpu_torch.track.keypoints import select_keypoints
+    from d3fields_tpu_torch.track.rigid import (
+        boundary_vectors, rigid_tracking_steps, stack_keypoints)
+    from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
+
+    labels, frames, res_kp, per_inst = ["shoe", "shoe"], 4, 0.002, 100
+    scenes = [synthetic_frame(t, 4, 240, 320, 1024) for t in range(frames)]
+
+    def fusion_at(t, device, fus=None):
+        backend = sphere_mask_backend(scenes[t], labels)
+        fus = fus or Fusion(num_cam=4, mask_backend=backend, device=device)
+        fus.mask_backend = backend
+        fus.update({k: scenes[t][k] for k in ("color", "depth", "pose", "K", "dino_feats")})
+        fus.text_queries_for_inst_mask(["shoe"], [0.5], boundaries=SYNTHETIC_BOUNDARIES)
+        return fus
+
+    def select(fus):
+        return select_keypoints(fus.state, fus.consensus_mask_label, SYNTHETIC_BOUNDARIES,
+                                per_inst, res=res_kp, init_idx=0)
+
+    cfg = TrackingConfig()
+    reset_launch_counts()
+    fus, rows = None, []
+    for t in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fus = fusion_at(t, dev, fus)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        row = {"frame": t, "update_masks_ms": (t1 - t0) * 1e3}
+        if t == 0:
+            feats, pts, ids = select(fus)
+            torch.cuda.synchronize()
+            row["select_keypoints_ms"] = (time.perf_counter() - t1) * 1e3
+            src_feats, last = stack_keypoints(feats, pts, dev)
+            lo, hi = boundary_vectors(SYNTHETIC_BOUNDARIES, dev)
+            first = None
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = rigid_tracking_steps(fus.state, src_feats, last, lo, hi, cfg)
+        torch.cuda.synchronize()
+        row["tracking_ms"] = (time.perf_counter() - t2) * 1e3
+        match = out["match_pts"]
+        check(bool(torch.isfinite(match).all() and torch.isfinite(out["loss_history"]).all()),
+              f"tracking frame {t}: not finite")
+        disp = (match - last).mean(1).cpu().numpy()  # (I, 3): each instance's translation
+        true = TRACK_DRIFT if t else np.zeros_like(TRACK_DRIFT)
+        if first is None:
+            first = match.mean(1).cpu().numpy()
+        row.update({
+            "translation": disp.tolist(), "true_drift": true.tolist(),
+            "translation_err": max_err(disp, true), "t_err": max_err(out["t"].cpu(), true),
+            "cumulative_err": max_err(match.mean(1).cpu().numpy() - first, t * TRACK_DRIFT),
+            "loss_first": out["loss_history"][0].tolist(),
+            "loss_last": out["loss_history"][-1].tolist()})
+        emit({"phase": "tracking_frame", **row})
+        if t:
+            check(row["translation_err"] <= TRACK_DRIFT_ATOL,
+                  f"tracking frame {t}: translation off the drift by {row['translation_err']}")
+        rows.append(row)
+        last = match
+    counts = launch_counts()
+    check(sum(counts.values()) == 0, f"the tracking path launched {counts}")
+
+    # frame 0's keypoints against the port's CPU run of the same frame
+    t0 = time.perf_counter()
+    cpu_feats, cpu_pts, cpu_ids = select(fusion_at(0, torch.device("cpu")))
+    cpu_seconds = time.perf_counter() - t0
+    check(cpu_ids == ids, f"keypoint instances {ids} on the card, {cpu_ids} on the CPU")
+    check(all(np.array_equal(a, b) for a, b in zip(pts, cpu_pts)),
+          "frame 0's src_pts differ between the card and the CPU")
+    feat_err = max(max_err(a, b) for a, b in zip(feats, cpu_feats))
+    grid_points = int(create_grid(SYNTHETIC_BOUNDARIES, res_kp)[0].shape[0])
+    emit({"phase": "tracking", "frames": frames, "image_hw": [240, 320], "feat_dim": 1024,
+          "keypoints_per_instance": per_inst, "instances": ids,
+          "keypoint_grid_points": grid_points,
+          "keypoint_tiles": -(-grid_points // 32768), "iters": cfg.iters,
+          "select_keypoints_ms": rows[0]["select_keypoints_ms"],
+          "tracking_ms": [r["tracking_ms"] for r in rows],
+          "translation_err": [r["translation_err"] for r in rows],
+          "drift_atol": TRACK_DRIFT_ATOL, "src_pts_identical_to_cpu": True,
+          "src_feats_card_vs_cpu_max_abs_err": feat_err, "cpu_select_seconds": cpu_seconds,
+          "launches": counts})
+    check(feat_err <= 1e-5, f"keypoint descriptors card vs CPU: {feat_err}")
+    # one frame's 100 steps, and 64 of the keypoint grid query's tiles, traced
+    profile_stage("tracking_frame", lambda: rigid_tracking_steps(
+        fus.state, src_feats, last, lo, hi, cfg))
+    from d3fields_tpu_torch.fields import fusion as ffusion
+
+    sample = create_grid(SYNTHETIC_BOUNDARIES, res_kp)[0][:64 * 32768]
+    profile_stage("select_keypoints_64_tiles",
+                  lambda: ffusion.batch_eval(fus.state, sample, ("mask",), tile=32768))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on the GPU only",
@@ -912,12 +1266,24 @@ def main() -> int:
                     for k, v in _build.build_log.items()}})
 
     rows = [check_fused_weighted_interp(dev), check_deform_gather(dev)]
-    rows[0]["launches"] = serve(dev)
+    by_path = {}
+    by_path["serve"] = {"fused_weighted_interp": 0, "deform_gather": 0}
+    by_path["serve"]["fused_weighted_interp"], backbone = serve(dev)
     torch.cuda.empty_cache()
-    rows[1]["launches"] = segment(dev)
+    by_path["segment"] = {"fused_weighted_interp": 0, "deform_gather": 0}
+    by_path["segment"]["deform_gather"], seg_backend = segment(dev)
+    by_path["golden"] = golden(dev)
+    by_path["vis_repr"] = vis_repr_full(dev)
+    by_path["vis_repr_backends"] = vis_repr_backends(dev, backbone, seg_backend)
+    del backbone, seg_backend
+    torch.cuda.empty_cache()
+    by_path["tracking"] = tracking(dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+    for row in rows:
+        row["launches_by_path"] = {path: c[row["name"]] for path, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    emit({"kernels": [{k: row[k] for k in keys + ("launches_by_path",)} for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,8 +19,10 @@
 // g = 2x - 1, ix = ((g + 1) * w - 1) * 0.5, the same for iy with h; the
 // four corners around (floor(ix), floor(iy)) are weighted (1-tx)(1-ty),
 // tx(1-ty), (1-tx)ty, tx*ty, and a corner outside the map samples zeros.
-// A NaN position samples zeros too, as CUDA's grid_sample does (the CPU's
-// grid_sample and the JAX package give NaN there). The position arithmetic
+// A NaN (or infinite) position gives the whole (b, q, head) row NaN, as the
+// JAX package and the CPU's grid_sample do (CUDA's grid_sample gives zeros
+// there): its four weights are attn * (ix * 0 + iy * 0), NaN for such a
+// position and attn * 0 for any finite one. The position arithmetic
 // is written with round-to-nearest intrinsics so that nvcc does not
 // contract it into fused multiply-adds, which would round the sample
 // positions differently from XLA and grid_sample.
@@ -105,7 +107,8 @@ __device__ __forceinline__ float shfl_down(float v, int delta) {
 // S axis, -1 for a corner outside the map) and weights (attn times the
 // bilinear weight). Corners are ordered (y0, x0), (y0, x0+1), (y0+1, x0),
 // (y0+1, x0+1). As in grid_sample with zeros padding, a corner outside the
-// map samples a zero row, so its weight is attn * 0 (NaN for a NaN attn).
+// map samples a zero row, so its weight is attn * 0 (NaN for a NaN attn, and
+// for a NaN or infinite position).
 __device__ __forceinline__ void sample_corners(const int4* __restrict__ levels,
                                                const float* __restrict__ loc_row,
                                                const float* __restrict__ attn_row, int s,
@@ -124,7 +127,9 @@ __device__ __forceinline__ void sample_corners(const int4* __restrict__ levels,
   // map; the test is false for NaN too, and keeps the float to int
   // conversions below in range for samples far outside [0, 1]
   if (!(x0f >= -1.f && x0f <= fw - 1.f && y0f >= -1.f && y0f <= fh - 1.f)) {
-    wt[0] = wt[1] = wt[2] = wt[3] = __fmul_rn(a, 0.f);
+    // 0 for a finite position, NaN for a NaN or infinite one
+    const float poison = __fadd_rn(__fmul_rn(ix, 0.f), __fmul_rn(iy, 0.f));
+    wt[0] = wt[1] = wt[2] = wt[3] = __fmul_rn(a, poison);
     return;
   }
   const float tx = __fsub_rn(ix, x0f), ty = __fsub_rn(iy, y0f);

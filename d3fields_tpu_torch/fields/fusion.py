@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from d3fields_tpu_torch.config import D3FieldsConfig
+from d3fields_tpu_torch.config import Boundaries, D3FieldsConfig
 from d3fields_tpu_torch.fields import geometry, kernels
 from d3fields_tpu_torch.fields.state import FieldState, state_from_obs
 from d3fields_tpu_torch.utils.device import resolve_device
@@ -166,11 +166,13 @@ def batch_eval(
 # ---------------------------------------------------------------------------
 
 class Fusion:
-    """Facade mirroring the reference ``Fusion`` class's field-query API.
+    """Facade mirroring the reference ``Fusion`` class API.
 
-    Holds the configuration, an optional feature backend, the device and the
-    current :class:`FieldState`; the math is in the functions above. Text
-    queries, meshes, tracking and state save/load are not ported yet.
+    Holds the configuration, optional feature and mask backends, the device
+    and the current :class:`FieldState`; the math is in the functions above
+    and in the ``seg``, ``mesh`` and ``track`` modules. Not ported yet:
+    video propagation of the masks (the XMem ``video_tracker``),
+    ``select_features_rand_v2``, ``vis_curr_mask`` and state save/load.
     """
 
     def __init__(
@@ -178,6 +180,7 @@ class Fusion:
         num_cam: Optional[int] = None,
         config: Optional[D3FieldsConfig] = None,
         feature_backend=None,
+        mask_backend=None,
         *,
         device=None,
     ):
@@ -192,8 +195,13 @@ class Fusion:
             torch.manual_seed(self.config.seed)
         self.num_cam = num_cam
         self.feature_backend = feature_backend
+        self.mask_backend = mask_backend
         self.state: Optional[FieldState] = None
         self.curr_obs: dict = {}
+        self.consensus_mask_label: list = []
+        self.semantic_label: list = []
+        self.view_masks: list = []
+        self.instances_info: list = []
 
     # -- ingestion ---------------------------------------------------------
     def update(self, obs: dict) -> FieldState:
@@ -253,3 +261,191 @@ class Fusion:
     def batch_eval_np(self, pts, return_names=("dino_feats", "mask")):
         out = self.batch_eval(pts, return_names)
         return {k: v.cpu().numpy() for k, v in out.items()}
+
+    # -- open-text instance masks -----------------------------------------
+    def _poses44(self) -> np.ndarray:
+        pose = self.state.pose.cpu().numpy()
+        pad = np.tile(np.array([[[0.0, 0.0, 0.0, 1.0]]], pose.dtype), (pose.shape[0], 1, 1))
+        return np.concatenate([pose, pad], axis=1)
+
+    def _boundaries(self, boundaries) -> Boundaries:
+        if boundaries is None:
+            return self.config.boundaries
+        if isinstance(boundaries, Boundaries):
+            return boundaries
+        return Boundaries.from_dict(boundaries)
+
+    def text_queries_for_inst_mask_no_track(
+        self,
+        queries,
+        thresholds,
+        boundaries=None,
+        expected_labels=None,
+        robot_pcd=None,
+    ):
+        """Open-text per-view masks + cross-view consensus, single frame.
+
+        Mirrors ``Fusion.text_queries_for_inst_mask_no_track``
+        (``fusion.py:1112-1171``): per-view mask backend -> optional robot
+        filter -> voxel-IoU consensus -> one-hot 'mask' in the state.
+        Returns (index masks (V, H, W) uint8, consensus labels).
+        """
+        from d3fields_tpu_torch.seg import backends as segb
+        from d3fields_tpu_torch.seg import instances as segi
+
+        self._require_state()
+        if self.mask_backend is None:
+            raise RuntimeError("no mask backend configured")
+        boundaries = self._boundaries(boundaries)
+        color = self.curr_obs["color"]
+        depth = self.state.depth.cpu().numpy()
+        Ks = self.state.K.cpu().numpy()
+        poses44 = self._poses44()
+
+        # backends take RGB; obs colour is BGR (the reference's cv2
+        # convention, converted inside its model wrappers)
+        rgb = np.ascontiguousarray(color[..., ::-1])
+        if hasattr(self.mask_backend, "segment_views"):
+            # batched backend: one detector pass over all views
+            views = self.mask_backend.segment_views(rgb, queries, thresholds)
+        else:
+            views = [self.mask_backend.segment(rgb[i], queries, thresholds)
+                     for i in range(self.num_cam)]
+        if robot_pcd is not None:
+            views = [segb.filter_masks_by_robot_pcd(vm, depth[i], Ks[i], poses44[i], robot_pcd)
+                     for i, vm in enumerate(views)]
+        self.view_masks = views
+        _, idx = np.unique(views[0].labels, return_index=True)
+        self.semantic_label = list(np.array(views[0].labels)[np.sort(idx)])
+
+        index_masks, labels, insts = segi.align_instance_masks(
+            views, depth, Ks, poses44, queries, boundaries,
+            self.config.instances, expected_labels,
+        )
+        self.consensus_mask_label = labels
+        self.instances_info = insts
+        self.set_mask(geometry.instance_to_onehot(index_masks, len(labels)).astype(np.float32))
+        return index_masks, labels
+
+    def text_queries_for_inst_mask(
+        self,
+        queries,
+        thresholds,
+        boundaries=None,
+        expected_labels=None,
+        robot_pcd=None,
+    ):
+        """Masks across frames (``Fusion.text_queries_for_inst_mask``,
+        ``fusion.py:1173-1256``): consensus on the first frame; on later
+        frames the mask backend runs again and the new channels are
+        relabelled by their largest pixel overlap with the previous frame's
+        masks (the reference's ``align_with_prev_mask``,
+        ``fusion.py:1100-1110``), so instance identities stay stable. The
+        JAX package's video-propagation branch (XMem) is not ported yet.
+        """
+        from d3fields_tpu_torch.seg.instances import align_with_prev_mask
+
+        if not self.consensus_mask_label:
+            return self.text_queries_for_inst_mask_no_track(
+                queries, thresholds, boundaries, expected_labels, robot_pcd)
+        prev_labels = list(self.consensus_mask_label)
+        prev_mask = self.state.mask.cpu().numpy() if self.state.mask is not None else None
+        index_masks, labels = self.text_queries_for_inst_mask_no_track(
+            queries, thresholds, boundaries, expected_labels or prev_labels, robot_pcd)
+        if prev_mask is not None and len(labels) == len(prev_labels):
+            new_mask = self.state.mask.cpu().numpy()
+            if new_mask.shape == prev_mask.shape:
+                aligned = align_with_prev_mask(new_mask, prev_mask)
+                self.set_mask(aligned)
+                self.consensus_mask_label = prev_labels
+                return geometry.onehot_to_instance(aligned), prev_labels
+        return index_masks, labels
+
+    def get_inst_num(self) -> int:
+        """Number of consensus instances including background
+        (``fusion.py:1258-1260``)."""
+        return len(self.consensus_mask_label)
+
+    def extract_masked_pcd(self, inst_idx_ls, boundaries=None) -> np.ndarray:
+        """World points under selected instances' (eroded) consensus masks,
+        aggregated over views (``fusion.py:1262-1280``)."""
+        from d3fields_tpu_torch.seg.instances import erode_mask
+
+        self._require_state()
+        boundaries = self._boundaries(boundaries)
+        mask = self.state.mask.cpu().numpy()
+        sel = np.zeros(mask.shape[:3], bool)
+        for idx in inst_idx_ls:
+            sel |= mask[..., idx].astype(bool)
+        sel = np.stack([erode_mask(sel[i]) for i in range(sel.shape[0])])
+        return geometry.aggregate_masked_points_np(
+            self.state.depth.cpu().numpy(), self.state.K.cpu().numpy(), self._poses44(),
+            masks=sel, boundaries=boundaries,
+        )
+
+    def get_query_obj_pcd(self, boundaries=None) -> np.ndarray:
+        """All non-background instance points (``fusion.py:1297-1311``)."""
+        return self.extract_masked_pcd(list(range(1, self.get_inst_num())), boundaries)
+
+    # -- reference-API conveniences -----------------------------------------
+    def extract_mesh(self, init_grid, out, grid_shape):
+        """(vertices, triangles) from a grid query result
+        (``Fusion.extract_mesh``, ``fusion.py:1313-1330``)."""
+        from d3fields_tpu_torch.mesh.extract import extract_mesh
+
+        return extract_mesh(np.asarray(init_grid), out["dist"], grid_shape,
+                            smooth=self.config.mesh.smooth, iso=self.config.mesh.iso,
+                            device=self.device)
+
+    def create_instance_mask_mesh(self, vertices, triangles, out):
+        from d3fields_tpu_torch.mesh.extract import create_instance_mask_mesh
+
+        return [create_instance_mask_mesh(vertices, triangles, out["mask"])]
+
+    def create_descriptor_mesh(self, vertices, triangles, out, pca_info, mask_out_bg=True):
+        from d3fields_tpu_torch.mesh.extract import create_descriptor_mesh
+        from d3fields_tpu_torch.ops.pca import PCAParams
+
+        pca = pca_info["pca"] if isinstance(pca_info, dict) else pca_info
+        if not isinstance(pca, PCAParams):
+            pca = PCAParams.from_sklearn(pca)
+        return create_descriptor_mesh(vertices, triangles, out["dino_feats"], out.get("mask"),
+                                      pca, mask_out_bg=mask_out_bg)
+
+    def create_color_mesh(self, vertices, triangles, out):
+        from d3fields_tpu_torch.mesh.extract import create_color_mesh
+
+        return create_color_mesh(vertices, triangles, out["color_tensor"])
+
+    def _keypoint_dict(self, feats, pts, ids) -> dict:
+        return {f"{self.consensus_mask_label[i]}_{i}": {"src_feats": f, "src_pts": p}
+                for f, p, i in zip(feats, pts, ids)}
+
+    def select_features_rand(self, boundaries, N, per_instance=False, res=0.001, init_idx=-1):
+        """Reference keypoint-selection API (``fusion.py:1418-1481``):
+        returns {instance_name: {'src_feats', 'src_pts'}} keyed by consensus
+        label with duplicate suffixes."""
+        from d3fields_tpu_torch.track.keypoints import select_keypoints
+
+        self._require_state()
+        return self._keypoint_dict(*select_keypoints(
+            self.state, self.consensus_mask_label, self._boundaries(boundaries), N,
+            res=res, per_instance=per_instance, init_idx=init_idx))
+
+    def select_features_from_pcd(self, pcd, N, per_instance=False, init_idx=-1):
+        """Cloud-sampled variant (``fusion.py:1483-1540``)."""
+        from d3fields_tpu_torch.track.keypoints import select_keypoints
+
+        self._require_state()
+        return self._keypoint_dict(*select_keypoints(
+            self.state, self.consensus_mask_label, self.config.boundaries, N,
+            per_instance=per_instance, init_idx=init_idx, pcd=pcd))
+
+    def rigid_tracking(self, src_feat_info, last_match_pts_list, boundaries, rand_ptcl_num):
+        """Reference signature (``fusion.py:1608-1685``)."""
+        from d3fields_tpu_torch.track.rigid import rigid_tracking
+
+        self._require_state()
+        return rigid_tracking(self.state, src_feat_info, last_match_pts_list,
+                              self._boundaries(boundaries), rand_ptcl_num,
+                              self.config.tracking)

@@ -1,6 +1,6 @@
 """L0 geometry primitives in PyTorch.
 
-Counterpart of ``d3fields_tpu/fields/geometry.py:37-297``:
+Counterpart of ``d3fields_tpu/fields/geometry.py``:
 
 - ``project_points``       <- reference ``fusion.py:32-55`` (project_points_coords)
 - ``sample_map_bilinear`` / ``sample_map_nearest`` / ``interpolate_maps``
@@ -11,6 +11,11 @@ Counterpart of ``d3fields_tpu/fields/geometry.py:37-297``:
   the fused interpolation kernel consumes
 - ``create_grid``          <- reference ``fusion.py:79-88`` (create_init_grid)
 - ``instance_to_onehot`` / ``onehot_to_instance`` <- reference ``fusion.py:90-116``
+- ``VoxelHash``            <- reference ``fusion.py:118-180`` (_init_low_level_memory)
+- ``backproject_depth`` and the host helpers ``depth_to_points_np``,
+  ``camera_to_world_np``, ``aggregate_masked_points_np`` and
+  ``voxel_downsample_np`` <- reference ``utils/my_utils.py:522-537``
+  (depth2fgpcd) and ``utils/draw_utils.py:325-413`` (aggr_point_cloud_from_data)
 
 Every function keeps the JAX package's layouts (channels last, views first)
 so the two packages compare like with like.
@@ -18,6 +23,7 @@ so the two packages compare like with like.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -262,3 +268,142 @@ def onehot_to_instance(onehot):
     if isinstance(onehot, np.ndarray):
         return np.argmax(onehot, axis=-1).astype(np.uint8)
     return torch.argmax(onehot, dim=-1).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Voxel hashing
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VoxelHash:
+    """Bounded-workspace voxel <-> flat-index codec on numpy arrays.
+
+    Reference: ``_init_low_level_memory`` closures (``fusion.py:118-180``).
+    """
+
+    lower: Tuple[float, float, float]
+    voxel_size: float
+    dims: Tuple[int, int, int]
+
+    @staticmethod
+    def from_boundaries(boundaries, voxel_size: float) -> "VoxelHash":
+        if hasattr(boundaries, "as_dict"):
+            boundaries = boundaries.as_dict()
+        lower = np.array([boundaries["x_lower"], boundaries["y_lower"], boundaries["z_lower"]])
+        upper = np.array([boundaries["x_upper"], boundaries["y_upper"], boundaries["z_upper"]])
+        dims = ((upper - lower) / voxel_size).astype(np.int32)
+        return VoxelHash(tuple(lower.tolist()), float(voxel_size), tuple(int(d) for d in dims))
+
+    def pcd_to_voxel(self, pts: np.ndarray) -> np.ndarray:
+        lower = np.asarray(self.lower, dtype=pts.dtype)
+        return np.floor((pts - lower) / self.voxel_size).astype(np.int32)
+
+    def voxel_to_pcd(self, vox: np.ndarray) -> np.ndarray:
+        return vox * self.voxel_size + np.asarray(self.lower)
+
+    def voxel_to_index(self, vox: np.ndarray) -> np.ndarray:
+        d1, d2 = self.dims[1], self.dims[2]
+        return vox[..., 0] * (d1 * d2) + vox[..., 1] * d2 + vox[..., 2]
+
+    def index_to_voxel(self, idx: np.ndarray) -> np.ndarray:
+        d1, d2 = self.dims[1], self.dims[2]
+        z = idx % d2
+        rem = idx // d2
+        y = rem % d1
+        x = rem // d1
+        return np.stack([x, y, z], axis=-1).astype(np.int32)
+
+    def pcd_to_index(self, pts: np.ndarray) -> np.ndarray:
+        return self.voxel_to_index(self.pcd_to_voxel(pts))
+
+    def index_to_pcd(self, idx: np.ndarray) -> np.ndarray:
+        return self.voxel_to_pcd(self.index_to_voxel(idx))
+
+
+# ---------------------------------------------------------------------------
+# Depth back-projection
+# ---------------------------------------------------------------------------
+
+def backproject_depth(depth: Tensor, K: Tensor) -> Tensor:
+    """Backproject a full (H, W) depth map to (H, W, 3) camera-frame points
+    on its device (``depth2fgpcd``, ``utils/my_utils.py:522-537``, without
+    the compaction; callers mask as needed)."""
+    H, W = depth.shape
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xs = torch.arange(W, dtype=depth.dtype, device=depth.device)[None, :]
+    ys = torch.arange(H, dtype=depth.dtype, device=depth.device)[:, None]
+    X = (xs - cx) * depth / fx
+    Y = (ys - cy) * depth / fy
+    return torch.stack([X, Y, depth], dim=-1)
+
+
+def depth_to_points_np(depth: np.ndarray, mask: np.ndarray, cam_params) -> np.ndarray:
+    """Host-side compacting backprojection (exact ``depth2fgpcd`` semantics:
+    masks out non-positive depth, returns (N, 3) camera-frame points)."""
+    fx, fy, cx, cy = cam_params
+    mask = np.logical_and(mask, depth > 0)
+    ys, xs = np.nonzero(mask)
+    z = depth[ys, xs]
+    return np.stack([(xs - cx) * z / fx, (ys - cy) * z / fy, z], axis=-1)
+
+
+def camera_to_world_np(pts_cam: np.ndarray, pose_w2c: np.ndarray) -> np.ndarray:
+    """Transform camera-frame points to world frame given a 4x4 world->cam pose."""
+    c2w = np.linalg.inv(pose_w2c)
+    pts_h = np.concatenate([pts_cam, np.ones((pts_cam.shape[0], 1))], axis=-1)
+    return (c2w @ pts_h.T)[:3].T
+
+
+def aggregate_masked_points_np(
+    depths: np.ndarray,
+    Ks: np.ndarray,
+    poses: np.ndarray,
+    masks: Optional[np.ndarray] = None,
+    boundaries=None,
+    max_depth: float = 1.5,
+) -> np.ndarray:
+    """Aggregate per-view masked backprojections into one world-frame cloud.
+
+    Host-side rewrite of ``aggr_point_cloud_from_data``
+    (``utils/draw_utils.py:325-413``) minus Open3D: when ``masks`` is None the
+    reference's default validity ``(depth>0) & (depth<1.5)`` applies, otherwise
+    ``mask & (depth>0)``; points outside ``boundaries`` are dropped.
+    ``poses`` are (V, 4, 4) world->camera.
+    """
+    clouds = []
+    for i in range(depths.shape[0]):
+        K = Ks[i]
+        cam_params = (K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+        if masks is None:
+            m = (depths[i] > 0) & (depths[i] < max_depth)
+        else:
+            m = masks[i] & (depths[i] > 0)
+        pts_w = camera_to_world_np(depth_to_points_np(depths[i], m, cam_params), poses[i])
+        if boundaries is not None:
+            b = boundaries.as_dict() if hasattr(boundaries, "as_dict") else boundaries
+            keep = (
+                (pts_w[:, 0] > b["x_lower"]) & (pts_w[:, 0] < b["x_upper"]) &
+                (pts_w[:, 1] > b["y_lower"]) & (pts_w[:, 1] < b["y_upper"]) &
+                (pts_w[:, 2] > b["z_lower"]) & (pts_w[:, 2] < b["z_upper"])
+            )
+            pts_w = pts_w[keep]
+        clouds.append(pts_w)
+    if not clouds:
+        return np.zeros((0, 3))
+    return np.concatenate(clouds, axis=0)
+
+
+def voxel_downsample_np(pts: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Voxel-grid downsample: mean of the points in each occupied voxel
+    (replaces Open3D's ``voxel_down_sample``, ``fusion.py:716-722``)."""
+    if pts.shape[0] == 0:
+        return pts
+    vox = np.floor(pts / voxel_size).astype(np.int64)
+    key = (vox - vox.min(axis=0)).astype(np.int64)
+    dims = key.max(axis=0) + 1
+    flat = (key[:, 0] * dims[1] + key[:, 1]) * dims[2] + key[:, 2]
+    uniq, inv = np.unique(flat, return_inverse=True)
+    sums = np.zeros((uniq.shape[0], 3))
+    np.add.at(sums, inv, pts)
+    counts = np.bincount(inv, minlength=uniq.shape[0]).astype(np.float64)
+    return sums / counts[:, None]

@@ -13,8 +13,9 @@ per-view descriptor map (``fusion.py:593-629``).
   weight, so it is a matrix product that TF32 settings for convolutions do
   not touch. LayerNorm (eps 1e-6) and the attention softmax run in f32,
   GELU is exact, attention is plain ``matmul`` + ``softmax``.
-- :class:`Dinov2Backbone` resizes on the host with the bit-exact Pillow
-  resampler ('pil', default) or on the device ('device'), normalises,
+- :class:`Dinov2Backbone` resizes with the bit-exact Pillow resampler
+  ('pil', default) or antialiased bilinear ('device'), both on the device,
+  normalises,
   runs the transformer and returns the patch tokens on the (ph, pw) grid,
   with positional embeddings interpolated per grid and cached.
 """
@@ -217,7 +218,7 @@ class Dinov2Backbone:
         reference loads, ``fusion.py:223``); 'hf' is huggingface
         Dinov2Model's exact-size grid.
 
-        ``resize_mode``: 'pil' (default) resizes uint8 images on the host
+        ``resize_mode``: 'pil' (default) resizes uint8 images on the device
         with the bit-exact Pillow bilinear resampler the reference's
         ``T.Resize`` uses; 'device' resizes float images on the device with
         :func:`bilinear_resize` (close to PIL, not bit-identical).
@@ -263,12 +264,13 @@ class Dinov2Backbone:
             patch_hw = (H // 10, W // 10)
         ph, pw = patch_hw
         pos = self.interpolated_pos_embed(ph, pw)
-        if self.resize_mode == "pil" and isinstance(images, np.ndarray) \
-                and images.dtype == np.uint8:
+        if isinstance(images, np.ndarray):
+            images = np.ascontiguousarray(images)
+        images = torch.as_tensor(images).to(self.device)
+        if self.resize_mode == "pil" and images.dtype == torch.uint8:
             images = pil_bilinear_resize_u8(images, (ph * P, pw * P))
         with torch.no_grad():
-            return _extract_patch_features(
-                self.model, torch.as_tensor(images).to(self.device), pos, (ph * P, pw * P))
+            return _extract_patch_features(self.model, images, pos, (ph * P, pw * P))
 
 
 def _extract_patch_features(model: Dinov2, images_u8: Tensor, pos_embed: Tensor,

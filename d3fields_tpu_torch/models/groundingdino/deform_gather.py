@@ -55,9 +55,16 @@ def deform_gather_plain(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]]
     """Plain PyTorch version: per level, ``F.grid_sample`` (bilinear,
     ``align_corners=False``, zeros padding) of the (B*nh, hd, h, w) maps at
     the sample positions, weighted by ``attn`` and summed over points and
-    levels."""
+    levels.
+
+    A NaN or infinite position makes its (b, q, head) row NaN on every
+    device, as in the JAX package: ``attn + loc * 0`` is NaN there and
+    ``attn`` elsewhere, since CUDA's grid_sample samples zeros at a NaN
+    position where the CPU's gives NaN.
+    """
     B, S, nh, hd = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    attn = attn + (loc * 0.0).sum(-1)
     grids = 2.0 * loc - 1.0
     out = value.new_zeros((B * nh, hd, Q))
     start = 0
@@ -81,7 +88,8 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
         row-major and stacked along S in ``spatial_shapes`` order.
       spatial_shapes: the L levels' (h, w), with sum(h*w) == S.
       loc: (B, Q, nh, L, P, 2) float32 sample positions (x, y), [0, 1]
-        spanning each map; positions outside sample zeros.
+        spanning each map; positions outside sample zeros, and a NaN
+        position makes its (b, q, head) row NaN.
       attn: (B, Q, nh, L, P) float32 attention weights.
 
     Returns: (B, Q, nh*hd) float32.

@@ -8,7 +8,8 @@ Counterpart of ``d3fields_tpu/models/resize.py``:
   positional-embedding interpolation. A numpy copy, so that the positional
   table is the JAX package's to the bit.
 - :func:`pil_bilinear_resize_u8` — bit-exact Pillow 8bpc bilinear resize,
-  with an in-tree numpy reimplementation used where Pillow is missing.
+  reimplemented in integer torch arithmetic on the images' device (the
+  port does not depend on Pillow).
 - :func:`bilinear_resize` — device-side antialiased bilinear resize of
   float images (the JAX package's ``jax.image.resize`` 'bilinear'), for the
   detectors' and SAM's preprocessing.
@@ -18,6 +19,8 @@ Counterpart of ``d3fields_tpu/models/resize.py``:
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -73,6 +76,7 @@ def cubic_resize_np(img: np.ndarray, out_hw: tuple[int, int],
 _PIL_PRECISION_BITS = 32 - 8 - 2  # Pillow Resample.c 8bpc fixed point
 
 
+@functools.lru_cache(maxsize=32)
 def _pil_coeffs_1d(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
     """Pillow ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
     bilinear (triangle, support=1) filter: per-output-pixel first tap index
@@ -97,59 +101,40 @@ def _pil_coeffs_1d(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]
     return xmins, weights
 
 
-def _pil_pass_u8(img: np.ndarray, xmins: np.ndarray, weights: np.ndarray,
-                 axis: int) -> np.ndarray:
-    """One 8bpc resample pass along ``axis`` with Pillow's rounding: start
-    the accumulator at 1 << (PRECISION_BITS-1), shift down, clip to u8.
-
-    The arithmetic is float64 multiply-adds, exact because every
-    intermediate is an integer below ksize * 255 * 2^22 << 2^53.
-    """
-    img = np.moveaxis(img, axis, 0).astype(np.float64)
-    out_size, ksize = weights.shape
-    acc = np.full((out_size,) + img.shape[1:], float(1 << (_PIL_PRECISION_BITS - 1)))
-    for k in range(ksize):
-        taps = np.clip(xmins + k, 0, img.shape[0] - 1)
-        w = weights[:, k].astype(np.float64)
-        acc += img[taps] * w.reshape((out_size,) + (1,) * (img.ndim - 1))
-    out = np.clip(np.floor(acc / (1 << _PIL_PRECISION_BITS)), 0, 255)
-    return np.moveaxis(out.astype(np.uint8), 0, axis)
+def _pil_pass_u8(img: torch.Tensor, in_size: int, out_size: int, dim: int) -> torch.Tensor:
+    """One 8bpc resample pass along ``dim`` (non-negative) with Pillow's
+    rounding: start the accumulator at 1 << (PRECISION_BITS-1), shift down,
+    clip to u8. In int64 on the image's device, so exact."""
+    xmins, weights = _pil_coeffs_1d(in_size, out_size)
+    ksize = weights.shape[1]
+    taps = np.clip(xmins[:, None] + np.arange(ksize), 0, in_size - 1).reshape(-1)
+    g = img.index_select(dim, torch.as_tensor(taps, device=img.device)).to(torch.int64)
+    split = list(g.shape[:dim]) + [out_size, ksize] + list(g.shape[dim + 1:])
+    wshape = [1] * len(split)
+    wshape[dim], wshape[dim + 1] = out_size, ksize
+    w = torch.as_tensor(weights, device=img.device).reshape(wshape)
+    acc = (g.reshape(split) * w).sum(dim + 1) + (1 << (_PIL_PRECISION_BITS - 1))
+    return torch.clamp(acc >> _PIL_PRECISION_BITS, 0, 255).to(torch.uint8)
 
 
-def pil_bilinear_resize_u8(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+def pil_bilinear_resize_u8(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bit-exact Pillow ``Image.resize(..., BILINEAR)`` on uint8 images.
 
     The reference's preprocessing (torchvision ``T.Resize`` on a PIL image,
-    ``fusion.py:603-607``). Accepts (H, W, C) or (K, H, W, C). Uses
-    Pillow's C resampler where Pillow is importable, else the numpy
-    reimplementation :func:`_pil_bilinear_resize_u8_np`, which gives the
-    same bytes.
+    ``fusion.py:603-607``), reimplemented in integer arithmetic: a
+    horizontal pass at the original height, then a vertical pass, each
+    rounded to uint8 as Pillow rounds. ``img`` is an (H, W, C) or
+    (K, H, W, C) uint8 tensor, resized on its device.
     """
-    if img.dtype != np.uint8:
+    if img.dtype != torch.uint8:
         raise TypeError("the PIL 8bpc path takes uint8 images only")
-    h, w = out_hw
-    try:
-        from PIL import Image
-    except ImportError:
-        return _pil_bilinear_resize_u8_np(img, out_hw)
-    if img.ndim == 3:
-        return np.asarray(Image.fromarray(img).resize((w, h), Image.BILINEAR))
-    return np.stack([
-        np.asarray(Image.fromarray(im).resize((w, h), Image.BILINEAR)) for im in img
-    ])
-
-
-def _pil_bilinear_resize_u8_np(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
-    """Numpy reimplementation of Pillow's 8bpc bilinear resample."""
     h, w = out_hw
     H, W = img.shape[-3], img.shape[-2]
     out = img
     if W != w:  # Pillow: horizontal pass first, at the original height
-        xm, wx = _pil_coeffs_1d(W, w)
-        out = _pil_pass_u8(out, xm, wx, axis=-2)
+        out = _pil_pass_u8(out, W, w, out.dim() - 2)
     if H != h:
-        ym, wy = _pil_coeffs_1d(H, h)
-        out = _pil_pass_u8(out, ym, wy, axis=-3)
+        out = _pil_pass_u8(out, H, h, out.dim() - 3)
     return out
 
 

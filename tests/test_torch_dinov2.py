@@ -153,8 +153,8 @@ def test_resizers_match_jax(rng):
 
 
 def test_pil_resize_numpy_path_bit_exact_vs_pillow(rng):
-    """The numpy resampler the port uses where Pillow is missing gives
-    Pillow's bytes: down, up, identity, odd ratios."""
+    """The port's integer resampler gives Pillow's bytes: down, up,
+    identity, odd ratios; one image or a batch."""
     from PIL import Image
 
     for (H, W), (h, w) in [((480, 640), (112, 140)), ((48, 64), (112, 140)),
@@ -162,5 +162,7 @@ def test_pil_resize_numpy_path_bit_exact_vs_pillow(rng):
                            ((240, 320), (336, 448))]:
         img = rng.integers(0, 256, size=(H, W, 3), dtype=np.uint8)
         ref = np.asarray(Image.fromarray(img).resize((w, h), Image.BILINEAR))
-        np.testing.assert_array_equal(tresize._pil_bilinear_resize_u8_np(img, (h, w)), ref)
-        np.testing.assert_array_equal(tresize.pil_bilinear_resize_u8(img[None], (h, w))[0], ref)
+        np.testing.assert_array_equal(
+            tresize.pil_bilinear_resize_u8(torch.as_tensor(img), (h, w)).numpy(), ref)
+        np.testing.assert_array_equal(
+            tresize.pil_bilinear_resize_u8(torch.as_tensor(img[None]), (h, w))[0].numpy(), ref)

@@ -65,8 +65,7 @@ def _gather_case(B, levels, nh, hd, P, Q, loc_range, seed, nan_share=0.0):
 
 # the shapes the kernel's routes branch on (csrc/deform_gather.cu): corner
 # rows of hd/4 float4 lanes, or of hd floats when hd % 4 != 0; rounds of 32
-# samples; NaN positions (NaN rows on the CPU and in JAX; zeros on the card,
-# as CUDA's grid_sample gives)
+# samples; NaN positions (NaN rows, on the CPU, on the card and in JAX)
 GATHER_CASES = {
     # tests/test_groundingdino.py:465-473: samples out of bounds, padded query tail
     "edge": (2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333, (-0.2, 1.2), 0.0),
