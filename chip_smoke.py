@@ -29,13 +29,22 @@ seeded generators:
 6. ``tracking``: vis_tracking's staged loop at full width (4 frames of 4
    views at 240x320, 1,024-d descriptors, 100 keypoints per instance from
    a 36M-point grid, 100 Adam steps a frame), the recovered drift checked
-   and frame 0's keypoints held to the CPU's.
+   and frame 0's keypoints held to the CPU's;
+7. ``xmem``: ``VideoMaskTracker.process`` with a full-width XMem (ResNet-50
+   key and ResNet-18 value encoders, ``XMemConfig()``) on the drifting
+   spheres, seeded on frame 0 and propagated 70 frames at 480x640
+   (consolidations at frames 45 and 70), frames 0-5 held to the CPU;
+8. ``serving_step``: DINOv2 ViT-L/14 -> XMem propagation -> field -> rigid
+   tracking, frames 1-4 staged (``Fusion.update`` ->
+   ``text_queries_for_inst_mask`` -> ``rigid_tracking_steps``), through
+   ``FusedFrameStep.step`` and through ``step_segment``, held together.
 
 Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
-kernels (the tracking path has none: its loss differentiates the unfused
-field query, as in the JAX package). After the counted requests, one more
-request of each path is traced with torch.profiler for the device time by
+kernels (the tracking, XMem and serving-step paths have none: the
+tracking loss differentiates the unfused field query, as in the JAX
+package, and XMem runs no TPU kernel there either). After the counted
+requests, one more request of each path is traced with torch.profiler for the device time by
 kernel and the device's idle share (traces under build/traces/), and each
 kernel is held and timed on the inputs a request gives it: one field-query
 tile, and the first encoder and decoder layers of one detection. The
@@ -51,6 +60,8 @@ TF32 is off for matmul and cuDNN, so every comparison is in full float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1240,6 +1251,376 @@ def tracking(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# slice 5: XMem video-mask propagation and the per-frame serving step
+# ---------------------------------------------------------------------------
+
+# mem_every 5: working memory fills (10 frames) at frame 45 and, after
+# the 5 frames a consolidation keeps, again at frame 70
+XMEM_FRAMES = 70
+XMEM_HOLD_FRAMES = 6      # frames 0-5 held to the port's CPU run
+# tests/test_parallel_train.py:481-486's bound for a rounding-only difference
+XMEM_PROB_ATOL, XMEM_MIN_AGREE = 2e-3, 0.995
+XMEM_RIG_HW = (240, 320)  # the synthetic rig; XMem runs at 480x640 (size 480)
+SERVING_FRAMES = 4
+SERVING_KEYPOINT_RES = 0.005  # the keypoint grid's step: 2.3M candidates
+# Eager PyTorch runs the fused and the staged frame as the same operations
+# in the same order; only a nondeterministic reduction could part them.
+SERVING_ATOL = 1e-5
+
+
+def xmem_model(dev, cfg, seed: int):
+    """Full-width XMem with random weights at PyTorch's default scale for
+    convolutions and linear layers (U(+-1/sqrt(fan_in)), what the reference's
+    untrained modules hold), drawn from a seeded generator, identity batch
+    norms, and the prediction head scaled by 10.
+
+    Not ``network.init_params``: its N(0, 2/fan_in) convolutions without
+    trained batch-norm statistics grow ResNet-50's features to ~1e3 and the
+    shrinkage to ~1.6e6 at 480x640, which turns the top-k attention into a
+    hard argmax whose picks flip on rounding (the port's CPU run against the
+    JAX package's, same weights: probabilities 2.4e-2 apart). The head's
+    scale spreads the untrained logits, which otherwise tie every pixel's
+    objects within rounding."""
+    from d3fields_tpu_torch.models.xmem.network import XMem
+
+    model = XMem(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                bound = 1.0 / float(np.sqrt(m.weight[0].numel()))
+                m.weight.uniform_(-bound, bound, generator=gen)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_parameters()
+        model.decoder.pred.weight.mul_(10.0)
+    return model.eval()
+
+
+def sphere_frame(t: int, feat_dim: int = 16) -> dict:
+    """Frame t of vis_tracking's drifting spheres on the 4-view rig, with
+    the index mask (0 background, 1 and 2 the spheres) under 'index'."""
+    from d3fields_tpu_torch.apps.vis_tracking import synthetic_frame
+
+    sc = synthetic_frame(t, 4, *XMEM_RIG_HW, feat_dim)
+    sm = sc["sphere_masks"]  # (V, 2, H, W)
+    sc["index"] = np.where(sm[:, 0], 1, np.where(sm[:, 1], 2, 0)).astype(np.uint8)
+    return sc
+
+
+def hold_probs(label: str, got, want) -> dict:
+    """Probabilities (V, O+1, H, W) of the card against the CPU's: the
+    largest error, the label agreement over all pixels, and over the pixels
+    whose CPU top-two margin exceeds twice XMEM_PROB_ATOL (elsewhere a
+    label is a near-tie that rounding decides)."""
+    got, want = np.asarray(got), np.asarray(want)
+    err = max_err(got, want)
+    top2 = np.sort(want, axis=1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > 2 * XMEM_PROB_ATOL
+    same = got.argmax(1) == want.argmax(1)
+    row = {"max_abs_err": err, "label_agreement": float(same.mean()),
+           "label_agreement_off_near_ties": float(same[sure].mean()) if sure.any() else 1.0,
+           "near_tie_share": float(1 - sure.mean())}
+    check(err <= XMEM_PROB_ATOL, f"{label}: probabilities {err} apart")
+    check(row["label_agreement_off_near_ties"] >= XMEM_MIN_AGREE, f"{label}: labels {row}")
+    return row
+
+
+def xmem_phase(dev, frames: int = XMEM_FRAMES) -> dict:
+    """``VideoMaskTracker.process`` at full width: 4 views at 240x320 (XMem
+    at 480x640, a 30x40 key grid), the two spheres seeded on frame 0 and
+    propagated ``frames`` frames with ``XMemConfig()`` (top-k 30, a memory
+    frame every 5, working memory 5-10 frames, 128 prototypes, 10,000
+    long-term elements). Frames 0-5 held to the port's CPU run; one normal
+    and one memory frame profiled."""
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.xmem.network import XMem
+    from d3fields_tpu_torch.seg.video_tracker import VideoMaskTracker
+
+    cfg = XMemConfig()
+    model = xmem_model(dev, cfg, seed=5)
+    tracker = VideoMaskTracker(model, cfg, 4, 2, XMEM_RIG_HW, size=cfg.size, device=dev)
+    core = tracker.core
+    scenes = [sphere_frame(t) for t in range(frames + 2 * cfg.mem_every + 4)]
+    rgb = [np.ascontiguousarray(sc["color"][..., ::-1]) for sc in scenes]
+
+    def allocator_counts() -> dict:
+        """The caching allocator's device mallocs and frees, and its retries
+        (a failed malloc that frees the cache and waits for the card): with
+        the garbage collector's time, what a slow frame is checked for."""
+        if dev.type != "cuda":
+            return {}
+        st = torch.cuda.memory_stats(dev)
+        return {k: st.get(k, 0) for k in ("segment.all.allocated", "segment.all.freed",
+                                          "num_alloc_retries")}
+
+    gc_ms = [0.0, 0.0]  # the frame's time in Python's garbage collector; a start time
+
+    def gc_timer(event, _info):
+        if event == "start":
+            gc_ms[1] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_ms[1]) * 1e3
+
+    def run(t):
+        torch.cuda.synchronize()
+        before = allocator_counts()
+        gc_ms[0] = 0.0
+        t0 = time.perf_counter()
+        onehot = tracker.process(rgb[t], scenes[0]["index"] if t == 0 else None)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(onehot.shape == (4,) + XMEM_RIG_HW + (3,) and np.isfinite(onehot).all(),
+              f"xmem frame {t}: one-hot")
+        after = allocator_counts()
+        return ms, {**{k: after[k] - before[k] for k in after}, "gc_ms": gc_ms[0]}
+
+    rows, card_probs = [], []
+
+    def body():
+        for t in range(frames + 1):
+            ms, alloc = run(t)
+            if t < XMEM_HOLD_FRAMES:
+                card_probs.append(tracker.last_prob.cpu().numpy())
+            rows.append({"frame": t, "ms": ms, "memory_frame": core.last_mem_ti == t,
+                         "w_size": core.mem.w_size, "l_size": core.mem.l_size,
+                         "allocator": alloc})
+
+    gc.callbacks.append(gc_timer)
+    try:
+        _, counts = reset_and_count(body)
+    finally:
+        gc.callbacks.remove(gc_timer)
+    check(sum(counts.values()) == 0, f"the xmem path launched {counts}")
+    prob = tracker.last_prob
+    check(bool(torch.isfinite(prob).all()), "xmem probabilities are not finite")
+    check(torch.allclose(prob.sum(1), torch.ones_like(prob[:, 0]), atol=1e-4),
+          "xmem probabilities do not sum to 1")
+    consolidated = [r["frame"] for r, q in zip(rows[1:], rows) if r["l_size"] > q["l_size"]]
+    check(len(consolidated) >= 1, "no consolidation in the xmem run")
+
+    t0 = time.perf_counter()
+    cpu_model = XMem(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = VideoMaskTracker(cpu_model, cfg, 4, 2, XMEM_RIG_HW, size=cfg.size, device="cpu")
+    holds = []
+    for t in range(XMEM_HOLD_FRAMES):
+        cpu.process(rgb[t], scenes[0]["index"] if t == 0 else None)
+        holds.append({"frame": t, **hold_probs(f"xmem frame {t} card vs CPU",
+                                               card_probs[t], cpu.last_prob.numpy())})
+    cpu_seconds = time.perf_counter() - t0
+
+    normal = [r["ms"] for r in rows[1:] if not r["memory_frame"]]
+    memory = [r["ms"] for r in rows[1:] if r["memory_frame"]]
+    emit({"phase": "xmem", "views": 4, "image_hw": list(XMEM_RIG_HW),
+          "xmem_hw": list(tracker.resized_hw), "key_grid": list(core.mem.hidden.shape[-2:]),
+          "frames": frames,
+          "config": dataclasses.asdict(cfg), "seed_ms": rows[0]["ms"],
+          "normal_frame_ms_median": float(np.median(normal)),
+          "memory_frame_ms_median": float(np.median(memory)),
+          "normal_frame_ms": normal, "memory_frame_ms": memory,
+          "memory_frames": [r["frame"] for r in rows if r["memory_frame"]],
+          "consolidation_frames": consolidated,
+          "consolidation_frame_ms": [rows[t]["ms"] for t in consolidated],
+          "w_size": [r["w_size"] for r in rows], "l_size": [r["l_size"] for r in rows],
+          # the frames on which the allocator went to the device or Python
+          # collected garbage
+          "allocator_frames": [{"frame": r["frame"], "ms": r["ms"], **r["allocator"]}
+                               for r in rows if any(r["allocator"].values())],
+          "card_vs_cpu": holds, "cpu_seconds": cpu_seconds,
+          "prob_atol": XMEM_PROB_ATOL, "min_label_agreement": XMEM_MIN_AGREE,
+          "launches": counts})
+    # profile_stage runs a warm-up frame, then the traced one: step on until
+    # the traced frame is of the kind wanted
+    def next_frame():
+        tracker.process(rgb[core.curr_ti + 1])
+
+    def traced_frame_is_memory():
+        ti, last = core.curr_ti, core.last_mem_ti
+        if ti + 1 - last >= cfg.mem_every:
+            last = ti + 1
+        return ti + 2 - last >= cfg.mem_every
+
+    for stage, memory in (("xmem_normal_frame", False), ("xmem_memory_frame", True)):
+        while traced_frame_is_memory() != memory:
+            next_frame()
+        profile_stage(stage, next_frame)
+        check((core.last_mem_ti == core.curr_ti) == memory, f"{stage}: the wrong kind of frame")
+    return counts
+
+
+def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
+    """The per-frame serving step at full width on the drifting spheres:
+    DINOv2 ViT-L/14 (``resize_mode='device'``) -> XMem propagation (the
+    tracker of ``xmem_phase``, built by the facade's
+    ``video_tracker_factory``) -> the field -> ``rigid_tracking_steps`` with
+    ``TrackingConfig()`` (100 Adam steps). Frame 0 runs consensus and seeds
+    the tracker; frames 1-4 run the staged way (``update`` ->
+    ``text_queries_for_inst_mask`` -> ``rigid_tracking_steps``), then
+    through ``FusedFrameStep.step`` on a second tracker seeded alike, then
+    through ``step_segment`` on a third; the three held together."""
+    import warnings
+
+    from d3fields_tpu_torch import Fusion
+    from d3fields_tpu_torch.apps.vis_tracking import SYNTHETIC_BOUNDARIES
+    from d3fields_tpu_torch.config import TrackingConfig, XMemConfig
+    from d3fields_tpu_torch.models import dinov2
+    from d3fields_tpu_torch.seg.video_tracker import VideoMaskTracker
+    from d3fields_tpu_torch.serving import FusedFrameStep, prefetch_to_device
+    from d3fields_tpu_torch.track.keypoints import select_keypoints
+    from d3fields_tpu_torch.track.rigid import (
+        boundary_vectors, rigid_tracking_steps, stack_keypoints)
+    from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
+
+    t0 = time.perf_counter()
+    backbone = dinov2.Dinov2Backbone(
+        dinov2.init_params(dinov2.Dinov2Config.vit_large(),
+                           torch.Generator(device=dev).manual_seed(0), device=dev),
+        resize_mode="device", device=dev)
+    xcfg = XMemConfig()
+    xmodel = xmem_model(dev, xcfg, seed=5)
+
+    def factory(num_views, num_objects, image_hw):
+        return VideoMaskTracker(xmodel, xcfg, num_views, num_objects, image_hw,
+                                size=xcfg.size, device=dev)
+
+    scenes = [sphere_frame(t) for t in range(frames + 3)]
+    obs = [{k: sc[k] for k in ("color", "depth", "pose", "K")} for sc in scenes]
+    fus = Fusion(num_cam=4, feature_backend=backbone,
+                 mask_backend=sphere_mask_backend(scenes[0], ["shoe", "shoe"]),
+                 video_tracker_factory=factory, device=dev)
+    tcfg = TrackingConfig()
+    fus.update(obs[0])
+    index0, labels = fus.text_queries_for_inst_mask(["shoe"], [0.5],
+                                                    boundaries=SYNTHETIC_BOUNDARIES)
+    check(labels == ["background", "shoe", "shoe"], f"consensus labels {labels}")
+    feats, pts, _ = select_keypoints(fus.state, labels, SYNTHETIC_BOUNDARIES, 100,
+                                     res=SERVING_KEYPOINT_RES, init_idx=0)
+    src_feats, last0 = stack_keypoints(feats, pts, dev)
+    lo, hi = boundary_vectors(SYNTHETIC_BOUNDARIES, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serving_setup", "backbone": "dinov2_vit_large_random",
+          "xmem": "xmem_full_width_random", "views": 4, "image_hw": list(XMEM_RIG_HW),
+          "keypoints": list(last0.shape), "keypoint_res": SERVING_KEYPOINT_RES,
+          "seconds": time.perf_counter() - t0})
+
+    def seeded_step():
+        tr = factory(4, 2, XMEM_RIG_HW)
+        tr.process(np.ascontiguousarray(scenes[0]["color"][..., ::-1]), index0.astype(np.uint8))
+        return FusedFrameStep(backbone, tr, obs[0]["depth"], obs[0]["pose"], obs[0]["K"],
+                              lo, hi, tcfg, xmem_bgr_to_rgb=True, mu=fus.config.fusion.mu)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    def staged():
+        rows, outs, last = [], [], last0
+        for t in range(1, frames + 1):
+            _, update_ms = timed(lambda: fus.update(obs[t]))
+            _, masks_ms = timed(lambda: fus.text_queries_for_inst_mask(
+                ["shoe"], [0.5], boundaries=SYNTHETIC_BOUNDARIES))
+            out, track_ms = timed(lambda: rigid_tracking_steps(fus.state, src_feats, last,
+                                                               lo, hi, tcfg))
+            out["mask"] = fus.video_tracker.last_prob[:, 1:].permute(0, 2, 3, 1)
+            last = out["match_pts"]
+            outs.append(out)
+            rows.append({"update_ms": update_ms, "masks_ms": masks_ms, "tracking_ms": track_ms,
+                         "frame_ms": update_ms + masks_ms + track_ms})
+        return outs, rows
+
+    (staged_outs, staged_rows), counts = reset_and_count(staged)
+    # the fused run takes frames already on the card, so that a step
+    # makes no host sync; set_sync_debug_mode counts any it makes
+    dev_frames = list(prefetch_to_device(
+        ({"color": sc["color"], "depth": sc["depth"]} for sc in scenes), device=dev))
+    torch.cuda.synchronize()
+
+    def host_syncs(fn):
+        """fn()'s result and where each host sync it made was called from
+        (torch.cuda.set_sync_debug_mode; setting the mode warns once that it
+        is experimental, which is not a sync)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                     if "called a synchronizing CUDA operation" in str(w.message)]
+
+    # the detector sees a sync where there is one (on the card; a CPU
+    # rehearsal has none to see)
+    check(dev.type != "cuda" or
+          len(host_syncs(lambda: float(torch.ones(1, device=dev).sum()))[1]) == 1,
+          "set_sync_debug_mode did not report a tensor read by the host")
+
+    def fused_run():
+        step = seeded_step()
+        outs, ms, syncs, last = [], [], [], last0
+        for t in range(1, frames + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, where = host_syncs(lambda: step.step(
+                dev_frames[t]["color"], src_feats, last, depth=dev_frames[t]["depth"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            syncs.append(where)
+            last = out["match_pts"]
+            outs.append(out)
+        return outs, ms, syncs, step
+
+    (fused_outs, fused_ms, syncs, step), fcounts = reset_and_count(fused_run)
+    errs = []
+    for t, (a, b) in enumerate(zip(fused_outs, staged_outs), start=1):
+        row = {k: float((a[k] - b[k]).abs().max()) for k in
+               ("match_pts", "t", "log_r", "loss_history", "mask")}
+        errs.append({"frame": t, **row})
+        for k in ("match_pts", "t", "log_r", "loss_history", "mask"):
+            check(bool(torch.isfinite(a[k]).all()), f"fused frame {t}: {k} not finite")
+            check(row[k] <= SERVING_ATOL, f"fused vs staged frame {t}: {k} {row[k]}")
+    check(not any(syncs), f"the fused steps synchronised with the host at {syncs}")
+    seg_step = seeded_step()
+    frames_u8 = torch.stack([dev_frames[t]["color"] for t in range(1, frames + 1)])
+    depths = torch.stack([dev_frames[t]["depth"] for t in range(1, frames + 1)])
+    (seg_out, seg_ms), scounts = reset_and_count(
+        lambda: timed(lambda: seg_step.step_segment(frames_u8, src_feats, last0, depths)))
+    seg_errs = []
+    for t, a in enumerate(fused_outs):
+        row = {k: float((seg_out[k][t] - a[k]).abs().max()) for k in a}
+        seg_errs.append({"frame": t + 1, **row})
+        check(max(row.values()) <= SERVING_ATOL, f"step_segment vs step frame {t + 1}: {row}")
+    check((seg_step.tracker.core.curr_ti, seg_step.tracker.core.last_mem_ti)
+          == (step.tracker.core.curr_ti, step.tracker.core.last_mem_ti)
+          == (fus.video_tracker.core.curr_ti, fus.video_tracker.core.last_mem_ti),
+          "the trackers' counters differ")
+    for c in (counts, fcounts, scounts):
+        check(sum(c.values()) == 0, f"the serving step launched {c}")
+    emit({"phase": "serving_step", "frames": frames, "iters": tcfg.iters,
+          "staged": staged_rows, "fused_frame_ms": fused_ms,
+          "step_segment_ms": seg_ms, "step_segment_ms_per_frame": seg_ms / frames,
+          "fused_vs_staged_max_abs_err": errs, "step_segment_vs_step_max_abs_err": seg_errs,
+          "atol": SERVING_ATOL, "host_syncs_in_fused_steps": syncs,
+          "drift_of_the_spheres": TRACK_DRIFT.tolist(),
+          "translation": [(o["match_pts"] - p).mean(1).tolist() for o, p in zip(
+              fused_outs, [last0] + [o["match_pts"] for o in fused_outs[:-1]])],
+          "launches": counts})
+    last = fused_outs[-1]["match_pts"]
+    nxt = [frames]
+
+    def one_fused_frame():
+        nxt[0] += 1
+        step.step(dev_frames[nxt[0]]["color"], src_feats, last, depth=dev_frames[nxt[0]]["depth"])
+
+    profile_stage("serving_fused_frame", one_fused_frame)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on the GPU only",
@@ -1278,6 +1659,10 @@ def main() -> int:
     del backbone, seg_backend
     torch.cuda.empty_cache()
     by_path["tracking"] = tracking(dev)
+    torch.cuda.empty_cache()
+    by_path["xmem"] = xmem_phase(dev)
+    torch.cuda.empty_cache()
+    by_path["serving_step"] = serving_step(dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

@@ -11,9 +11,10 @@ autograd, Adam) and writes ``match_pts_<t>.pkl`` and ``loss_hist_<t>.pkl``
   python -m d3fields_tpu_torch.apps.vis_tracking --synthetic --frames 6 --out out/track
 
 It runs on CUDA unless ``main`` is given another ``device``. Not ported
-yet: the reprojection-mosaic video ``tracking.mp4`` (``TrackVis``), the
-recorded-scene path with checkpoint-built backends and XMem propagation,
-and ``--fused`` / ``--segment`` (one dispatch per frame).
+yet: the reprojection-mosaic video ``tracking.mp4`` (``TrackVis``) and the
+recorded-scene path with checkpoint-built backends and XMem propagation.
+``--fused`` (``serving.FusedFrameStep``) needs that path's XMem tracker, so
+it is refused with ``--synthetic`` as in the JAX app.
 """
 
 from __future__ import annotations
@@ -55,10 +56,11 @@ def build_parser():
                         "reference's synchronous loop; outputs are "
                         "identical either way")
     p.add_argument("--segment", type=int, default=0,
-                   help="with --fused: frames per dispatch (not ported yet)")
+                   help="with --fused: frames per FusedFrameStep.step_segment call")
     p.add_argument("--fused", action="store_true",
-                   help="one dispatch per frame through the XMem video "
-                        "tracker (not ported yet)")
+                   help="each frame through serving.FusedFrameStep (DINOv2 -> XMem "
+                        "propagation -> field -> tracking); needs the XMem tracker "
+                        "of the recorded-scene path")
     return p
 
 
@@ -91,11 +93,15 @@ def main(argv=None, *, device=None):
     from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
     from d3fields_tpu_torch.utils.visualization import jet_colors
 
-    if args.fused or args.segment > 1:
+    if args.fused and args.synthetic:
         raise SystemExit(
-            "--fused and --segment run each frame as one dispatch through the "
-            "XMem video tracker, which d3fields_tpu_torch has not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+            "--fused requires the XMem video tracker (real-data path with "
+            "D3F_XMEM_CKPT); the synthetic demo serves analytic per-frame "
+            "masks with no tracker to fuse")
+    if args.segment > 1 and not args.fused:
+        raise SystemExit(
+            "--segment batches frames through FusedFrameStep.step_segment "
+            "and does nothing on the staged path — add --fused")
     if not args.synthetic:
         raise SystemExit(
             "only --synthetic runs in d3fields_tpu_torch so far: recorded scenes "

@@ -168,11 +168,10 @@ def batch_eval(
 class Fusion:
     """Facade mirroring the reference ``Fusion`` class API.
 
-    Holds the configuration, optional feature and mask backends, the device
-    and the current :class:`FieldState`; the math is in the functions above
-    and in the ``seg``, ``mesh`` and ``track`` modules. Not ported yet:
-    video propagation of the masks (the XMem ``video_tracker``),
-    ``select_features_rand_v2``, ``vis_curr_mask`` and state save/load.
+    Holds the configuration, optional feature and mask backends, the XMem
+    video tracker, the device and the current :class:`FieldState`; the math
+    is in the functions above and in the ``seg``, ``mesh`` and ``track``
+    modules. Not ported yet: ``select_features_rand_v2``.
     """
 
     def __init__(
@@ -181,10 +180,16 @@ class Fusion:
         config: Optional[D3FieldsConfig] = None,
         feature_backend=None,
         mask_backend=None,
+        video_tracker=None,
+        video_tracker_factory=None,
         *,
         device=None,
     ):
-        """``device`` defaults to CUDA and raises when no GPU is visible."""
+        """``video_tracker_factory(num_views, num_objects, image_hw)`` is
+        called on the first tracked frame, once consensus has given the
+        object count, and returns a
+        :class:`~d3fields_tpu_torch.seg.video_tracker.VideoMaskTracker`.
+        ``device`` defaults to CUDA and raises when no GPU is visible."""
         self.device = resolve_device(device)
         self.config = config or D3FieldsConfig()
         if self.config.seed is not None:
@@ -196,6 +201,8 @@ class Fusion:
         self.num_cam = num_cam
         self.feature_backend = feature_backend
         self.mask_backend = mask_backend
+        self.video_tracker = video_tracker
+        self.video_tracker_factory = video_tracker_factory
         self.state: Optional[FieldState] = None
         self.curr_obs: dict = {}
         self.consensus_mask_label: list = []
@@ -335,19 +342,38 @@ class Fusion:
         expected_labels=None,
         robot_pcd=None,
     ):
-        """Masks across frames (``Fusion.text_queries_for_inst_mask``,
-        ``fusion.py:1173-1256``): consensus on the first frame; on later
-        frames the mask backend runs again and the new channels are
-        relabelled by their largest pixel overlap with the previous frame's
-        masks (the reference's ``align_with_prev_mask``,
-        ``fusion.py:1100-1110``), so instance identities stay stable. The
-        JAX package's video-propagation branch (XMem) is not ported yet.
+        """Tracked masks (``Fusion.text_queries_for_inst_mask``,
+        ``fusion.py:1173-1256``): consensus on the first frame, video
+        propagation after it.
+
+        Propagation uses the ``video_tracker`` (built from
+        ``video_tracker_factory`` once the object count is known): it is
+        seeded with the consensus masks on the first frame and propagates
+        them on later frames. Without one, the mask backend runs again on
+        later frames and the new channels are relabelled by their largest
+        pixel overlap with the previous frame's masks (the reference's
+        ``align_with_prev_mask``, ``fusion.py:1100-1110``), so instance
+        identities stay stable.
         """
         from d3fields_tpu_torch.seg.instances import align_with_prev_mask
 
         if not self.consensus_mask_label:
-            return self.text_queries_for_inst_mask_no_track(
+            index_masks, labels = self.text_queries_for_inst_mask_no_track(
                 queries, thresholds, boundaries, expected_labels, robot_pcd)
+            if (self.video_tracker is None and self.video_tracker_factory is not None
+                    and len(labels) > 1):  # nothing to track on background alone
+                self.video_tracker = self.video_tracker_factory(
+                    num_views=self.num_cam, num_objects=len(labels) - 1,
+                    image_hw=self.curr_obs["color"].shape[1:3])
+            if self.video_tracker is not None:
+                # the tracker takes RGB; obs colour is BGR
+                self.set_mask(self.video_tracker.process(
+                    self.curr_obs["color"][..., ::-1], index_masks.astype(np.uint8)))
+            return index_masks, labels
+        if self.video_tracker is not None:
+            onehot = self.video_tracker.process(self.curr_obs["color"][..., ::-1], None)
+            self.set_mask(onehot)
+            return geometry.onehot_to_instance(onehot), self.consensus_mask_label
         prev_labels = list(self.consensus_mask_label)
         prev_mask = self.state.mask.cpu().numpy() if self.state.mask is not None else None
         index_masks, labels = self.text_queries_for_inst_mask_no_track(
@@ -360,6 +386,13 @@ class Fusion:
                 self.consensus_mask_label = prev_labels
                 return geometry.onehot_to_instance(aligned), prev_labels
         return index_masks, labels
+
+    def clear_xmem_memory(self):
+        """Reset video tracking (``Fusion.clear_xmem_memory``,
+        ``fusion.py:1699-1702``)."""
+        self.consensus_mask_label = []
+        if self.video_tracker is not None:
+            self.video_tracker.clear_memory()
 
     def get_inst_num(self) -> int:
         """Number of consensus instances including background
@@ -449,3 +482,106 @@ class Fusion:
         return rigid_tracking(self.state, src_feat_info, last_match_pts_list,
                               self._boundaries(boundaries), rand_ptcl_num,
                               self.config.tracking)
+
+    def close(self):
+        """Drop the backends, the tracker and the state (``Fusion.close``,
+        ``fusion.py:1704-1712``)."""
+        self.feature_backend = None
+        self.mask_backend = None
+        self.video_tracker = None
+        self.state = None
+        self.curr_obs = {}
+
+    def vis_curr_mask(self) -> np.ndarray:
+        """Jet-blended per-view instance overlay (``fusion.py:1687-1697``),
+        returned as (V, H, W, 3) uint8 instead of shown in a window."""
+        from d3fields_tpu_torch.utils.visualization import blend_instance_mask
+
+        self._require_state()
+        idx = geometry.onehot_to_instance(self.state.mask.cpu().numpy())
+        color = self.curr_obs["color"]
+        return np.stack([blend_instance_mask(color[v], idx[v]) for v in range(self.num_cam)])
+
+    # -- pipeline-state checkpoint ------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Pickle the runtime state: the field state, the consensus labels
+        and the video tracker's memory and counters."""
+        import os
+        import pickle
+
+        from d3fields_tpu_torch.models.xmem.memory import memory_to_host
+
+        st = self.state
+        blob = {
+            "state": None if st is None else {
+                k: getattr(st, k).cpu().numpy()
+                for k in ("depth", "pose", "K", "dino_feats", "color", "mask")
+                if getattr(st, k) is not None},
+            "mu": None if st is None else st.mu,
+            "consensus_mask_label": self.consensus_mask_label,
+            "semantic_label": self.semantic_label,
+            "num_cam": self.num_cam,
+            "curr_obs_color": self.curr_obs.get("color"),
+        }
+        if self.video_tracker is not None:
+            core = self.video_tracker.core
+            blob["tracker"] = {
+                "mem": memory_to_host(core.mem),
+                "curr_ti": core.curr_ti,
+                "last_mem_ti": core.last_mem_ti,
+                "last_deep_update_ti": getattr(core, "last_deep_update_ti", None),
+                "first_mask_loaded": self.video_tracker.first_mask_loaded,
+                # so that load_state can rebuild the tracker through
+                # video_tracker_factory
+                "spec": {"num_views": self.num_cam,
+                         "num_objects": self.video_tracker.num_objects,
+                         "image_hw": tuple(self.video_tracker.image_hw),
+                         "multi_group": core.multi_group},
+            }
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(blob, f)
+
+    def load_state(self, path: str) -> None:
+        """Restore what :meth:`save_state` wrote (a file this program wrote:
+        unpickling runs code)."""
+        import pickle
+        import warnings
+
+        from d3fields_tpu_torch.models.xmem.memory import memory_from_host
+
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        if blob["state"] is not None:
+            d = {k: torch.as_tensor(v).to(self.device) for k, v in blob["state"].items()}
+            self.state = FieldState(mu=blob["mu"], **d)
+        self.consensus_mask_label = blob["consensus_mask_label"]
+        self.semantic_label = blob["semantic_label"]
+        self.num_cam = blob.get("num_cam") or (
+            None if self.state is None else self.state.num_views)
+        if blob.get("curr_obs_color") is not None:
+            self.curr_obs["color"] = blob["curr_obs_color"]
+        t = blob.get("tracker")
+        if t is None:
+            return
+        spec = t["spec"]
+        if self.video_tracker is None and self.video_tracker_factory is not None:
+            self.video_tracker = self.video_tracker_factory(
+                spec["num_views"], spec["num_objects"], tuple(spec["image_hw"]))
+        if self.video_tracker is None:
+            warnings.warn(
+                "load_state: the checkpoint holds video-tracker memory but no tracker "
+                "is attached and no video_tracker_factory is configured; tracking "
+                "will re-seed instead of resuming", stacklevel=2)
+            return
+        core = self.video_tracker.core
+        if spec["multi_group"] != core.multi_group:
+            warnings.warn(
+                f"load_state: the checkpoint's tracker had multi_group={spec['multi_group']}, "
+                f"the attached one has {core.multi_group}", stacklevel=2)
+        core.mem = memory_from_host(t["mem"], core.device)
+        core.curr_ti = t["curr_ti"]
+        core.last_mem_ti = t["last_mem_ti"]
+        if t["last_deep_update_ti"] is not None:
+            core.last_deep_update_ti = t["last_deep_update_ti"]
+        self.video_tracker.first_mask_loaded = t["first_mask_loaded"]

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d3fields_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD, linear
+from d3fields_tpu_torch.models.common import imagenet_stats, linear
 from d3fields_tpu_torch.models.resize import (
     bilinear_resize, cubic_resize_np, pil_bilinear_resize_u8,
 )
@@ -279,8 +279,7 @@ def _extract_patch_features(model: Dinov2, images_u8: Tensor, pos_embed: Tensor,
     pixels = images_u8.to(torch.float32) / 255.0
     if tuple(pixels.shape[1:3]) != tuple(resize_hw):  # pre-resized (pil mode): skip
         pixels = bilinear_resize(pixels, resize_hw)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=pixels.device)
-    std = torch.as_tensor(IMAGENET_STD, device=pixels.device)
+    mean, std = imagenet_stats(pixels.device)
     tokens = model.forward_tokens((pixels - mean) / std, pos_embed)
     P = model.cfg.patch_size
     ph, pw = resize_hw[0] // P, resize_hw[1] // P

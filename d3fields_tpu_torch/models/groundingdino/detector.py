@@ -21,7 +21,7 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from d3fields_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD
+from d3fields_tpu_torch.models.common import imagenet_stats
 from d3fields_tpu_torch.models.groundingdino.model import GroundingDino
 from d3fields_tpu_torch.models.resize import bilinear_resize
 from d3fields_tpu_torch.utils.device import resolve_device
@@ -77,8 +77,7 @@ class GroundingDinoDetector:
         """uint8 (V, H, W, 3) -> normalised (V, rh, rw, 3) on the device."""
         imgs = torch.as_tensor(np.asarray(images), device=self.device).float() / 255.0
         imgs = bilinear_resize(imgs, self.resized_hw(*imgs.shape[1:3]))
-        mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
-        std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        mean, std = imagenet_stats(imgs.device)
         return (imgs - mean) / std
 
     def predict_with_classes(

@@ -77,8 +77,11 @@ def test_vis_tracking_reproduces_fast_golden(tmp_path):
 @pytest.mark.parametrize("app, argv, message", [
     (vis_repr, ["--scene", "mug"], "only --synthetic"),
     (vis_tracking, ["--data_path", "x"], "only --synthetic"),
-    (vis_tracking, ["--synthetic", "--fused"], "Queue 1 item 7"),
-    (vis_tracking, ["--synthetic", "--fused", "--segment", "4"], "Queue 1 item 7"),
+    # the JAX app's reasons (d3fields_tpu/apps/vis_tracking.py:143-152)
+    (vis_tracking, ["--synthetic", "--fused"], "--fused requires the XMem video tracker"),
+    (vis_tracking, ["--synthetic", "--fused", "--segment", "4"],
+     "--fused requires the XMem video tracker"),
+    (vis_tracking, ["--synthetic", "--segment", "4"], "add --fused"),
 ])
 def test_unported_paths_exit_with_a_message(app, argv, message):
     with pytest.raises(SystemExit, match=message):
