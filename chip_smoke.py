@@ -37,7 +37,16 @@ seeded generators:
 8. ``serving_step``: DINOv2 ViT-L/14 -> XMem propagation -> field -> rigid
    tracking, frames 1-4 staged (``Fusion.update`` ->
    ``text_queries_for_inst_mask`` -> ``rigid_tracking_steps``), through
-   ``FusedFrameStep.step`` and through ``step_segment``, held together.
+   ``FusedFrameStep.step`` and through ``step_segment``, held together;
+9. ``recorded_scene``: the recorded-scene path. The drifting spheres are
+   written as a 6-frame 4-view recorded scene (PNG colour and depth, .npy
+   cameras), full-width random checkpoints in the reference layouts
+   (torch-hub DINOv2 ViT-L/14, huggingface GroundingDINO swin-T and SAM
+   ViT-H, XMem.pth) and a vocab are written beside it, and the apps build
+   their backends from those files (``apps/_backends.py``): ``vis_repr
+   --data_path`` is held bit for bit to ``vis_repr.run`` with the in-memory
+   models, and ``vis_tracking --data_path --fused --segment 2`` to the
+   staged loop over the same frames.
 
 Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
@@ -68,6 +77,7 @@ import subprocess
 import sys
 import time
 import zlib
+from unittest import mock
 
 import numpy as np
 import torch
@@ -704,23 +714,14 @@ def check_view_masks(views, hw, queries) -> None:
               "background is the complement of the union")
 
 
-def segment(dev, num_requests: int = 3):
-    """Slice 2's path at full width: GroundingDINO swin-T + SAM ViT-H
-    (random weights from seeded generators) behind
-    ``GroundedSAMBackend.segment_views``, 3 requests of a 4-view 240x320 rig;
-    then the card held to the plain gather and to the CPU, and one more
-    request traced by torch.profiler. Returns the launches and the backend."""
+def segment_models(dev):
+    """GroundingDINO swin-T and SAM ViT-H with random weights from seeded
+    generators: the models of the segmentation phases."""
     from d3fields_tpu_torch.models.groundingdino import model as gd
-    from d3fields_tpu_torch.models.groundingdino.deform_gather import (
-        deform_gather, deform_gather_plain)
-    from d3fields_tpu_torch.models.groundingdino.detector import GroundingDinoDetector
     from d3fields_tpu_torch.models.sam import model as sam
-    from d3fields_tpu_torch.models.sam.predictor import SamPredictor
-    from d3fields_tpu_torch.seg.grounded_sam import GroundedSAMBackend
 
-    t0 = time.perf_counter()
-    gcfg, scfg = gd.GroundingDinoConfig(), sam.SamConfig.vit_huge()
-    gmodel = gd.init_params(gcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gmodel = gd.init_params(gd.GroundingDinoConfig(), torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
     with torch.no_grad():
         # At huggingface's init scale the random model's contrastive logits
         # are dot products of two unit-scale 256-d features, O(10-100): the
@@ -731,10 +732,28 @@ def segment(dev, num_requests: int = 3):
         last = gmodel.model.encoder.layers[-1].text_enhancer_layer.layer_norm_after
         last.weight.mul_(0.05)
         last.bias.mul_(0.05)
+    smodel = sam.init_params(sam.SamConfig.vit_huge(), torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    return gmodel, smodel
+
+
+def segment(dev, num_requests: int = 3):
+    """Slice 2's path at full width: GroundingDINO swin-T + SAM ViT-H
+    (random weights from seeded generators) behind
+    ``GroundedSAMBackend.segment_views``, 3 requests of a 4-view 240x320 rig;
+    then the card held to the plain gather and to the CPU, and one more
+    request traced by torch.profiler. Returns the launches and the backend."""
+    from d3fields_tpu_torch.models.groundingdino.deform_gather import (
+        deform_gather, deform_gather_plain)
+    from d3fields_tpu_torch.models.groundingdino.detector import GroundingDinoDetector
+    from d3fields_tpu_torch.models.sam.predictor import SamPredictor
+    from d3fields_tpu_torch.seg.grounded_sam import GroundedSAMBackend
+
+    t0 = time.perf_counter()
+    gmodel, smodel = segment_models(dev)
+    gcfg = gmodel.cfg
     detector = GroundingDinoDetector(gmodel, tokenize=tokenize, device=dev)
-    predictor = SamPredictor(
-        sam.init_params(scfg, torch.Generator(device=dev).manual_seed(1), device=dev),
-        device=dev)
+    predictor = SamPredictor(smodel, device=dev)
     backend = GroundedSAMBackend(detector, predictor)
     rigs = [scene(seed=300 + r)["color"] for r in range(num_requests)]
     thr, at_thr = pick_box_threshold(detector, rigs)
@@ -1618,7 +1637,220 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
         step.step(dev_frames[nxt[0]]["color"], src_feats, last, depth=dev_frames[nxt[0]]["depth"])
 
     profile_stage("serving_fused_frame", one_fused_frame)
+    return counts, {"fused_frame_ms": fused_ms,
+                    "staged_frame_ms": [r["frame_ms"] for r in staged_rows]}
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the recorded-scene path (checkpoint files -> the apps)
+# ---------------------------------------------------------------------------
+
+RECORDED_FRAMES = 6
+SCENE_DIR = os.path.join(OUT, "scene")
+CKPT_DIR = os.path.join(OUT, "ckpts")
+# vis_repr --synthetic's workspace (vis_repr.synthetic_inputs)
+REPR_BOUNDS = ["--x_lower", "-0.3", "--x_upper", "0.5", "--y_lower", "-0.3", "--y_upper", "0.35",
+               "--z_lower", "0.001", "--z_upper", "0.3"]
+# the two spheres over the 6 frames' drift: 3.9M keypoint candidates at
+# select_keypoints' 2 mm, not SYNTHETIC_BOUNDARIES' 36M (10-17 s a run)
+TRACK_BOUNDS = ["--x_lower", "-0.16", "--x_upper", "0.3", "--y_lower", "-0.16", "--y_upper", "0.2",
+                "--z_lower", "0.001", "--z_upper", "0.2",
+                "--kypts_z_lower", "0.001", "--kypts_z_upper", "0.2"]
+
+
+def write_vocab(path: str) -> None:
+    """A BERT vocab.txt (special tokens at BERT's ids) that holds the words
+    of SEG_QUERIES at the ids the toy tokenizer gives them, so that the
+    wordpiece tokenizer of the checkpoint-built detector feeds the random
+    model the ids the segmentation phase fed it."""
+    ids = {w: tokenize(w)[0] for q in SEG_QUERIES for w in q.split()}
+    lines = [f"[unused{i}]" for i in range(1013)]
+    for i, tok in ((0, "[PAD]"), (100, "[UNK]"), (101, "[CLS]"), (102, "[SEP]"),
+                   (103, "[MASK]"), (1012, ".")):
+        lines[i] = tok
+    for w, i in ids.items():
+        check(lines[i].startswith("[unused"), f"vocab id {i} of {w!r} is taken")
+        lines[i] = w
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def recorded_scene(dev, serving_ms: dict) -> dict:
+    """Both apps on a recorded scene with backends built from checkpoint
+    files. The 4-view 240x320 drifting spheres, 6 frames, are written as
+    PNG files and .npy cameras under build/chip_smoke/scene; full-width
+    random checkpoints in the reference layouts (torch-hub DINOv2 ViT-L/14,
+    huggingface GroundingDINO swin-T and SAM ViT-H, XMem.pth at
+    ``XMemConfig()``) and a vocab under build/chip_smoke/ckpts, deleted at
+    the end. ``vis_repr --data_path`` is held bit for bit to ``vis_repr.run``
+    with the in-memory models on the same ``load_frame`` observation;
+    ``vis_tracking --data_path --fused --segment 2`` to the staged loop over
+    the same 6 frames at SERVING_ATOL. The tracking runs take the analytic
+    sphere masks through ``_backends.build_mask_backend``: random
+    GroundingDINO weights give no stable instances to track."""
+    import shutil
+
+    from d3fields_tpu_torch.apps import _backends
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models import dinov2
+    from d3fields_tpu_torch.utils import io
+
+    t0 = time.perf_counter()
+    scenes = [sphere_frame(t) for t in range(RECORDED_FRAMES)]
+    for t, sc in enumerate(scenes):
+        io.save_frame(SCENE_DIR, t, sc)
+    scene_seconds = time.perf_counter() - t0
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    dmodel = dinov2.init_params(dinov2.Dinov2Config.vit_large(),
+                                torch.Generator(device=dev).manual_seed(0), device=dev)
+    gmodel, smodel = segment_models(dev)
+    xmodel = xmem_model(dev, XMemConfig(), seed=5)
+    hub = dict(dmodel.state_dict(), mask_token=torch.zeros(1, dmodel.cfg.hidden_size))
+    env, write_s, sizes = {}, {}, {}
+    for var, sd, name in (("D3F_DINOV2_CKPT", hub, "dinov2_vitl14.pth"),
+                          ("D3F_GDINO_CKPT", gmodel.state_dict(), "groundingdino_swint.pth"),
+                          ("D3F_SAM_CKPT", smodel.state_dict(), "sam_vit_h.pth"),
+                          ("D3F_XMEM_CKPT", xmodel.state_dict(), "XMem.pth")):
+        env[var] = os.path.join(CKPT_DIR, name)
+        t0 = time.perf_counter()
+        torch.save({k: v.cpu() for k, v in sd.items()}, env[var])
+        write_s[name] = time.perf_counter() - t0
+        sizes[name] = os.path.getsize(env[var])
+    env["D3F_BERT_VOCAB"] = os.path.join(CKPT_DIR, "vocab.txt")
+    write_vocab(env["D3F_BERT_VOCAB"])
+
+    times = {}
+    try:
+        with mock.patch.dict(os.environ, env), \
+                timed_function(io, "load_frame", times), \
+                timed_function(_backends, "build_feature_backend", times), \
+                timed_function(_backends, "build_mask_backend", times), \
+                timed_function(_backends, "build_video_tracker_factory", times):
+            repr_row, repr_counts = recorded_vis_repr(dev, dmodel, gmodel, smodel, env)
+            track_row, track_counts = recorded_tracking(dev)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    counts = {k: repr_counts[k] + track_counts[k] for k in repr_counts}
+    emit({"phase": "recorded_scene", "views": 4, "image_hw": list(XMEM_RIG_HW),
+          "frames": RECORDED_FRAMES, "write_scene_seconds": scene_seconds,
+          "checkpoint_bytes": sizes, "checkpoint_write_seconds": write_s,
+          "checkpoint_load_seconds": {k: [ms / 1e3 for ms in v] for k, v in times.items()
+                                      if k.startswith("build_")},
+          "load_frame_ms": times["load_frame"], "vis_repr": repr_row, "tracking": track_row,
+          "serving_step_fused_frame_ms": serving_ms["fused_frame_ms"],
+          "serving_step_staged_frame_ms": serving_ms["staged_frame_ms"],
+          "mask_backend_of_tracking": "analytic sphere masks through "
+                                      "_backends.build_mask_backend: random GroundingDINO "
+                                      "weights give no stable instances to track",
+          "launches": counts})
     return counts
+
+
+def recorded_vis_repr(dev, dmodel, gmodel, smodel, env):
+    """``vis_repr.main --data_path`` through ``_backends``, counted, then
+    ``vis_repr.run`` with the in-memory models, held bit for bit."""
+    from d3fields_tpu_torch import Fusion
+    from d3fields_tpu_torch.apps import _backends, vis_repr
+    from d3fields_tpu_torch.config import Boundaries
+    from d3fields_tpu_torch.models import dinov2
+    from d3fields_tpu_torch.models.groundingdino.detector import GroundingDinoDetector
+    from d3fields_tpu_torch.models.sam.predictor import SamPredictor
+    from d3fields_tpu_torch.seg.grounded_sam import GroundedSAMBackend
+    from d3fields_tpu_torch.utils import io
+
+    obs = io.load_frame(SCENE_DIR, 0, 4)
+    detector = GroundingDinoDetector(
+        gmodel, _backends._wordpiece_tokenizer(env["D3F_BERT_VOCAB"]), device=dev)
+    # the facade hands the backend RGB; the obs colour is BGR
+    thr, _ = pick_box_threshold(detector, [np.ascontiguousarray(obs["color"][..., ::-1])])
+    dump = os.path.join(OUT, "recorded_vis_repr.npz")
+    argv = ["--data_path", SCENE_DIR, "--t", "0", "--query_texts", *SEG_QUERIES,
+            "--query_thresholds", repr(thr), "--step", str(VIS_REPR_STEP), *REPR_BOUNDS,
+            "--out", os.path.join(OUT, "recorded_vis_repr"), "--dump_arrays", dump]
+    t0 = time.perf_counter()
+    code, counts = reset_and_count(lambda: vis_repr.main(argv, device=dev))
+    seconds = time.perf_counter() - t0
+    check(code == 0, "vis_repr --data_path exited with an error")
+    gcfg = gmodel.cfg
+    check(counts["deform_gather"] == gcfg.encoder_layers + gcfg.decoder_layers
+          and counts["fused_weighted_interp"] > 0, f"vis_repr --data_path launch counts {counts}")
+    got = dict(np.load(dump))
+    boundaries = Boundaries(*(float(v) for v in REPR_BOUNDS[1::2]))
+    fusion = Fusion(num_cam=4, feature_backend=dinov2.Dinov2Backbone(dmodel, device=dev),
+                    mask_backend=GroundedSAMBackend(detector, SamPredictor(smodel, device=dev)),
+                    device=dev)
+    res = vis_repr_run(fusion, obs, SEG_QUERIES, [thr], boundaries, "recorded_vis_repr_memory")
+    want = vis_repr_arrays(res)
+    identical = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+    errs = {k: max_err(got[k], want[k]) if got[k].shape == want[k].shape else None for k in want}
+    check(all(identical.values()), f"vis_repr from files vs in memory: {errs}")
+    check(res["vertices"].shape[0] > 0, "empty mesh")
+    return {"box_threshold": thr, "labels": res["labels"],
+            "boxes_per_view": [len(vm.labels) - 1 for vm in fusion.view_masks],
+            "vertices": int(res["vertices"].shape[0]), "grid_points": int(got["dist"].shape[0]),
+            "main_seconds": seconds, "in_memory_stage_ms": res["stage_ms"],
+            "bit_identical_to_in_memory": identical, "launches": counts}, counts
+
+
+def recorded_tracking(dev):
+    """``vis_tracking --data_path`` staged and ``--fused --segment 2`` over
+    the 6 frames, DINOv2 and XMem from the files, held at SERVING_ATOL."""
+    from d3fields_tpu_torch import Fusion, serving
+    from d3fields_tpu_torch.apps import _backends, vis_tracking
+    from d3fields_tpu_torch.models import dinov2
+    from d3fields_tpu_torch.track import rigid
+    from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
+
+    build = _backends.build_feature_backend
+    scene0 = sphere_frame(0)
+
+    def device_resize(*args, **kwargs):
+        # the resize FusedFrameStep runs, so that the staged loop computes
+        # what the fused frames do
+        fb = build(*args, **kwargs)
+        return dinov2.Dinov2Backbone(fb.model, resize_mode="device", device=fb.device)
+
+    argv = ["--data_path", SCENE_DIR, "--frames", str(RECORDED_FRAMES), "--query_texts", "shoe",
+            "--query_thresholds", "0.5", *TRACK_BOUNDS]
+    staged_dir, fused_dir = os.path.join(OUT, "recorded_staged"), os.path.join(OUT, "recorded_fused")
+    staged_t, fused_t = {}, {}
+    with mock.patch.object(_backends, "build_mask_backend",
+                           lambda *a, **k: sphere_mask_backend(scene0, ["shoe", "shoe"])), \
+            mock.patch.object(_backends, "build_feature_backend", device_resize):
+        with timed_function(Fusion, "update", staged_t), \
+                timed_function(Fusion, "text_queries_for_inst_mask", staged_t), \
+                timed_function(rigid, "rigid_tracking_steps", staged_t):
+            t0 = time.perf_counter()
+            code, counts = reset_and_count(lambda: vis_tracking.main(
+                argv + ["--out", staged_dir], device=dev))
+            staged_s = time.perf_counter() - t0
+        check(code == 0, "vis_tracking --data_path exited with an error")
+        with timed_function(serving.FusedFrameStep, "step", fused_t), \
+                timed_function(serving.FusedFrameStep, "step_segment", fused_t):
+            t0 = time.perf_counter()
+            code, fcounts = reset_and_count(lambda: vis_tracking.main(
+                argv + ["--fused", "--segment", "2", "--out", fused_dir], device=dev))
+            fused_s = time.perf_counter() - t0
+        check(code == 0, "vis_tracking --data_path --fused --segment 2 exited with an error")
+    check(len(fused_t["step_segment"]) == 2 and len(fused_t["step"]) == 1,
+          f"fused frames {fused_t}: want two 2-frame segments and a 1-frame tail")
+    staged, fused = tracking_outputs(staged_dir, RECORDED_FRAMES), \
+        tracking_outputs(fused_dir, RECORDED_FRAMES)
+    for k in staged:
+        check(np.isfinite(staged[k]).all(), f"staged {k} is not finite")
+    errs = held("recorded fused vs staged", fused, staged, dict.fromkeys(staged, SERVING_ATOL))
+    staged_frame_ms = [sum(staged_t[k][t] for k in staged_t) for t in range(1, RECORDED_FRAMES)]
+    fused_frame_ms = [ms / 2 for ms in fused_t["step_segment"] for _ in range(2)] + fused_t["step"]
+    drift = np.diff(staged["match_pts"].mean(2), axis=0)  # (frames - 1, I, 3)
+    return {"keypoints": list(staged["src_pts"].shape), "staged_frame_ms": staged_frame_ms,
+            "staged_stage_ms": staged_t, "fused_frame_ms": fused_frame_ms,
+            "step_segment_ms": fused_t["step_segment"], "step_ms": fused_t["step"],
+            "staged_main_seconds": staged_s, "fused_main_seconds": fused_s,
+            "fused_vs_staged_max_abs_err": errs, "atol": SERVING_ATOL,
+            "translation_per_frame": drift.tolist(),
+            "launches": {"staged": counts, "fused": fcounts}}, \
+        {k: counts[k] + fcounts[k] for k in counts}
 
 
 def main() -> int:
@@ -1662,7 +1894,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["xmem"] = xmem_phase(dev)
     torch.cuda.empty_cache()
-    by_path["serving_step"] = serving_step(dev)
+    by_path["serving_step"], serving_ms = serving_step(dev)
+    torch.cuda.empty_cache()
+    by_path["recorded_scene"] = recorded_scene(dev, serving_ms)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

@@ -3,15 +3,19 @@
 Counterpart of ``d3fields_tpu/apps/vis_repr.py``, with the same flags.
 Meshes are written as PLY files:
 
+  python -m d3fields_tpu_torch.apps.vis_repr --scene mug --data_root data \\
+      --pca_path pca_model/mug.pkl --out out/mug
+  python -m d3fields_tpu_torch.apps.vis_repr --data_path data/<scene> \\
+      --query_texts mug --query_thresholds 0.3
   python -m d3fields_tpu_torch.apps.vis_repr --synthetic --out out/demo
 
-Pipeline (reference ``vis_repr.py:57-126``): Fusion.update ->
-text_queries_for_inst_mask_no_track -> dense-grid batch_eval -> smoothing +
-marching tetrahedra -> vertex batch_eval (dino/mask/colour) -> instance /
-descriptor / colour meshes. It runs on CUDA unless ``main`` is given
-another ``device``. Only ``--synthetic`` runs so far: recorded scenes need
-the frame loader and the checkpoint-built backends, which are not ported
-yet.
+A recorded scene is read with ``utils.io.load_frame`` and its backends
+(DINOv2, GroundingDINO + SAM) are built from the ``D3F_*`` checkpoint files
+by ``apps/_backends.py``. Pipeline (reference ``vis_repr.py:57-126``):
+load frame -> Fusion.update -> text_queries_for_inst_mask_no_track ->
+dense-grid batch_eval -> smoothing + marching tetrahedra -> vertex
+batch_eval (dino/mask/colour) -> instance / descriptor / colour meshes. It
+runs on CUDA unless ``main`` is given another ``device``.
 """
 
 from __future__ import annotations
@@ -158,14 +162,34 @@ def main(argv=None, *, device=None):
     args = build_parser().parse_args(argv)
     from d3fields_tpu_torch.fields.fusion import Fusion
 
-    if not args.synthetic:
-        raise SystemExit(
-            "only --synthetic runs in d3fields_tpu_torch so far: recorded scenes "
-            "need the frame loader and the checkpoint-built backends, which are "
-            "not ported yet")
-    obs, queries, thresholds, boundaries, backend = synthetic_inputs(
-        args.num_cam, args.feat_dim, args.query_texts, args.query_thresholds)
-    fusion = Fusion(num_cam=args.num_cam, mask_backend=backend, device=device)
+    if args.synthetic:
+        obs, queries, thresholds, boundaries, backend = synthetic_inputs(
+            args.num_cam, args.feat_dim, args.query_texts, args.query_thresholds)
+        fusion = Fusion(num_cam=args.num_cam, mask_backend=backend, device=device)
+    else:
+        from d3fields_tpu_torch.apps._backends import build_real_backends
+        from d3fields_tpu_torch.utils.io import load_frame
+
+        boundaries = Boundaries(
+            x_lower=args.x_lower, x_upper=args.x_upper,
+            y_lower=args.y_lower, y_upper=args.y_upper,
+            z_lower=args.z_lower, z_upper=args.z_upper,
+        )
+        if args.scene:
+            sub, queries, thresholds = SCENES[args.scene]
+            data_path = args.data_path or os.path.join(args.data_root, sub)
+        else:
+            data_path = args.data_path
+            queries, thresholds = args.query_texts, args.query_thresholds
+            if not (data_path and queries and thresholds):
+                raise SystemExit(
+                    "need --scene, or --data_path + --query_texts + "
+                    "--query_thresholds, or --synthetic"
+                )
+        obs = load_frame(data_path, args.t, args.num_cam)
+        feature_backend, mask_backend = build_real_backends(device=device)
+        fusion = Fusion(num_cam=args.num_cam, feature_backend=feature_backend,
+                        mask_backend=mask_backend, device=device)
     run(fusion, obs, queries, thresholds, boundaries, args.step, args.out,
         pca_path=args.pca_path, dump=args.dump_arrays)
     return 0

@@ -2,19 +2,26 @@
 
 Counterpart of ``d3fields_tpu/apps/vis_tracking.py``'s staged loop, with
 the same flags. Per frame: Fusion.update + text queries (consensus on frame
-0, re-detection relabelled by overlap after); at t=0 keypoints are
-farthest-point-sampled per instance and their descriptors recorded; every
-frame then solves a rigid SE(3) fit through the differentiable field (torch
-autograd, Adam) and writes ``match_pts_<t>.pkl`` and ``loss_hist_<t>.pkl``
-(``src_feats.pkl`` at t=0):
+0; after it XMem propagation, or re-detection relabelled by overlap); at
+t=0 keypoints are farthest-point-sampled per instance and their
+descriptors recorded; every frame then solves a rigid SE(3) fit through the
+differentiable field (torch autograd, Adam) and writes
+``match_pts_<t>.pkl`` and ``loss_hist_<t>.pkl`` (``src_feats.pkl`` at t=0):
 
   python -m d3fields_tpu_torch.apps.vis_tracking --synthetic --frames 6 --out out/track
+  python -m d3fields_tpu_torch.apps.vis_tracking --data_path data/<scene> \\
+      --query_texts shoe --query_thresholds 0.5 [--fused [--segment N]]
 
-It runs on CUDA unless ``main`` is given another ``device``. Not ported
-yet: the reprojection-mosaic video ``tracking.mp4`` (``TrackVis``) and the
-recorded-scene path with checkpoint-built backends and XMem propagation.
-``--fused`` (``serving.FusedFrameStep``) needs that path's XMem tracker, so
-it is refused with ``--synthetic`` as in the JAX app.
+A recorded scene is read with ``utils.io.load_frame``; DINOv2, GroundingDINO
++ SAM and the XMem video tracker are built from the ``D3F_*`` checkpoint
+files by ``apps/_backends.py`` (without ``D3F_XMEM_CKPT`` every frame is
+re-detected). ``--fused`` runs frame 0 the staged way, then every frame
+through ``serving.FusedFrameStep`` (DINOv2 -> XMem propagation -> field ->
+tracking); ``--segment N`` takes full chunks of N frames through
+``step_segment`` and a shorter tail frame by frame. It needs the XMem
+tracker, so it is refused with ``--synthetic``, as in the JAX app. It runs
+on CUDA unless ``main`` is given another ``device``. Not ported yet: the
+reprojection-mosaic video ``tracking.mp4`` (``TrackVis``).
 """
 
 from __future__ import annotations
@@ -89,8 +96,8 @@ def main(argv=None, *, device=None):
     from d3fields_tpu_torch.track.rigid import (
         boundary_vectors, rigid_tracking_steps, stack_keypoints,
     )
+    from d3fields_tpu_torch.utils.device import resolve_device
     from d3fields_tpu_torch.utils.io import save_pickle
-    from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
     from d3fields_tpu_torch.utils.visualization import jet_colors
 
     if args.fused and args.synthetic:
@@ -102,29 +109,50 @@ def main(argv=None, *, device=None):
         raise SystemExit(
             "--segment batches frames through FusedFrameStep.step_segment "
             "and does nothing on the staged path — add --fused")
-    if not args.synthetic:
-        raise SystemExit(
-            "only --synthetic runs in d3fields_tpu_torch so far: recorded scenes "
-            "need the frame loader, the checkpoint-built backends and XMem, "
-            "which are not ported yet")
+    device = resolve_device(device)
+    boundaries = Boundaries(args.x_lower, args.x_upper, args.y_lower, args.y_upper,
+                            args.z_lower, args.z_upper)
+    # separate keypoint-selection bounds (reference kypts_boundaries,
+    # vis_tracking.py:35-40)
+    kypts_boundaries = Boundaries(args.x_lower, args.x_upper, args.y_lower, args.y_upper,
+                                  args.kypts_z_lower, args.kypts_z_upper)
     os.makedirs(args.out, exist_ok=True)
 
-    frames = args.frames or 6
-    boundaries = kypts_boundaries = SYNTHETIC_BOUNDARIES
-    get_frame = lambda t: synthetic_frame(t, args.num_cam)  # noqa: E731
-    scene0 = get_frame(0)
-    labels = args.query_texts * 2 if len(args.query_texts) == 1 else args.query_texts
-    backend = sphere_mask_backend(scene0, labels)
-    fusion = Fusion(num_cam=args.num_cam, mask_backend=backend, device=device)
+    if args.synthetic:
+        from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
 
-    def refresh_masks(sc):
-        # serve the current frame's analytic masks (per-frame re-detection
-        # of text_queries_for_inst_mask)
-        backend.per_view = sphere_mask_backend(sc, labels).per_view
-        backend.reset()
+        frames = args.frames or 6
+        boundaries = kypts_boundaries = SYNTHETIC_BOUNDARIES
+        labels = args.query_texts * 2 if len(args.query_texts) == 1 else args.query_texts
+        backend = sphere_mask_backend(synthetic_frame(0, args.num_cam), labels)
+        fusion = Fusion(num_cam=args.num_cam, mask_backend=backend, device=device)
+
+        def get_obs(t):
+            # the frame's descriptors, and its analytic masks served as
+            # per-frame re-detection of text_queries_for_inst_mask
+            scene = synthetic_frame(t, args.num_cam)
+            backend.per_view = sphere_mask_backend(scene, labels).per_view
+            backend.reset()
+            return {k: scene[k] for k in ("color", "depth", "pose", "K", "dino_feats")}
+    else:
+        from d3fields_tpu_torch.apps import _backends
+        from d3fields_tpu_torch.utils.io import load_frame, num_frames
+
+        frames = args.frames or num_frames(args.data_path)
+        feature_backend, mask_backend = _backends.build_real_backends(device=device)
+        # XMem propagation when D3F_XMEM_CKPT is set (reference behaviour);
+        # otherwise per-frame re-detection with overlap relabelling
+        fusion = Fusion(num_cam=args.num_cam, feature_backend=feature_backend,
+                        mask_backend=mask_backend,
+                        video_tracker_factory=_backends.build_video_tracker_factory(
+                            device=device),
+                        device=device)
+
+        def get_obs(t):
+            return load_frame(args.data_path, t, args.num_cam)
 
     cfg = TrackingConfig(iters=args.iters)
-    src_feats = last_match = lo = hi = None
+    src_feats = last_match = lo = hi = fused = None
 
     def consume(t, out):
         # the host side of the pipeline: per-frame pickles (reference
@@ -139,11 +167,39 @@ def main(argv=None, *, device=None):
               f"submit-to-consume, {sum(p.shape[0] for p in pts_list)} pts")
 
     loop = AsyncFrameLoop(consume, depth=args.pipeline_depth)
+    seg_buf = []
+
+    def flush_segment():
+        # a full chunk of --segment frames through step_segment
+        nonlocal last_match
+        outs = fused.step_segment(np.stack([o["color"] for _, o, _ in seg_buf]), src_feats,
+                                  last_match, depths=np.stack([o["depth"] for _, o, _ in seg_buf]))
+        last_match = outs["match_pts"][-1]
+        for i, (ti, _, ti0) in enumerate(seg_buf):
+            loop.submit(ti, {"match_pts": outs["match_pts"][i],
+                             "loss_history": outs["loss_history"][i], "t0": ti0})
+        seg_buf.clear()
+
+    def fused_step(t, obs, t0):
+        # one frame through FusedFrameStep: DINOv2, XMem propagation, the
+        # field and tracking, with no host sync
+        nonlocal last_match
+        out = fused.step(obs["color"], src_feats, last_match, depth=obs["depth"])
+        last_match = out["match_pts"]
+        loop.submit(t, {"match_pts": last_match, "loss_history": out["loss_history"],
+                        "t0": t0})
+
     for t in range(frames):
         t0 = time.perf_counter()
-        scene = get_frame(t)
-        obs = {k: scene[k] for k in ("color", "depth", "pose", "K", "dino_feats")}
-        refresh_masks(scene)
+        obs = get_obs(t)
+        if fused is not None:
+            if args.segment > 1:
+                seg_buf.append((t, obs, t0))
+                if len(seg_buf) == args.segment:
+                    flush_segment()
+            else:
+                fused_step(t, obs, t0)
+            continue
         fusion.update(obs)
         fusion.text_queries_for_inst_mask(args.query_texts, args.query_thresholds,
                                           boundaries=boundaries)
@@ -166,6 +222,33 @@ def main(argv=None, *, device=None):
         res = rigid_tracking_steps(fusion.state, src_feats, last_match, lo, hi, cfg)
         last_match = res["match_pts"]
         loop.submit(t, {"match_pts": last_match, "loss_history": res["loss_history"], "t0": t0})
+        if args.fused and t == 0:
+            # the seed frame went the staged way (detection seeds the
+            # tracker); every later frame runs FusedFrameStep
+            from d3fields_tpu_torch.models.dinov2 import Dinov2Backbone
+            from d3fields_tpu_torch.serving import FusedFrameStep
+
+            if fusion.video_tracker is None:
+                raise SystemExit(
+                    "--fused needs the XMem video tracker — set "
+                    "D3F_XMEM_CKPT so frames propagate instead of "
+                    "re-detecting per frame")
+            fb = feature_backend
+            if fb.resize_mode != "device":
+                # the fused step resizes on the device: the same weights
+                # behind a device-resize wrapper
+                fb = Dinov2Backbone(fb.model, pos_interpolate=fb.pos_interpolate,
+                                    resize_mode="device", device=fb.device)
+            # obs colour is BGR (cv2 convention): DINOv2 takes it as it is
+            # (as Fusion.update does) while the tracker was seeded with RGB,
+            # so the step flips the XMem branch's input
+            fused = FusedFrameStep(fb, fusion.video_tracker, obs["depth"], obs["pose"],
+                                   obs["K"], lo, hi, cfg, xmem_bgr_to_rgb=True,
+                                   mu=fusion.config.fusion.mu)
+
+    # a tail shorter than --segment: per-frame fused steps
+    for ti, o, ti0 in seg_buf:
+        fused_step(ti, o, ti0)
     loop.flush()
     print(f"[vis_tracking] wrote pickles to {args.out}")
     return 0

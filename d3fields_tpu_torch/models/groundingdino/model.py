@@ -64,6 +64,13 @@ class GroundingDinoConfig:
     text: B.BertConfig = B.BertConfig()
 
     @staticmethod
+    def swin_b() -> "GroundingDinoConfig":
+        """groundingdino_swinb_cogcoor (HF grounding-dino-base), the larger
+        of the two checkpoints the reference downloads (its runtime default
+        is swin-t)."""
+        return GroundingDinoConfig(swin=SW.SwinConfig.base())
+
+    @staticmethod
     def tiny_test() -> "GroundingDinoConfig":
         return GroundingDinoConfig(
             d_model=32, num_feature_levels=3, encoder_layers=2,
@@ -75,6 +82,35 @@ class GroundingDinoConfig:
             text=B.BertConfig(vocab_size=2000, hidden_size=24, num_layers=2,
                               num_heads=2, intermediate_size=48, max_position=64),
         )
+
+
+# the one trunk-width table: 96 = swin-t (the reference's runtime default),
+# 128 = swin-b; trunk_name() and config_for_trunk() both read it
+_TRUNKS = {
+    96: ("swin_t", GroundingDinoConfig),
+    128: ("swin_b", GroundingDinoConfig.swin_b),
+}
+
+
+def _require_trunk(embed_dim: int):
+    if embed_dim not in _TRUNKS:
+        known = ", ".join(f"{w} = {n}" for w, (n, _) in sorted(_TRUNKS.items()))
+        raise ValueError(
+            f"unsupported GroundingDINO trunk width {embed_dim} (know "
+            f"{known}) — pass an explicit cfg"
+        )
+    return _TRUNKS[embed_dim]
+
+
+def config_for_trunk(embed_dim: int) -> GroundingDinoConfig:
+    """The config of a Swin patch-embed width, as the checkpoint loaders
+    (``apps/_backends.py``) read it from a checkpoint."""
+    return _require_trunk(embed_dim)[1]()
+
+
+def trunk_name(embed_dim: int) -> str:
+    """The trunk's label for a Swin embed width."""
+    return _require_trunk(embed_dim)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +695,9 @@ def load_jax_params(model: GroundingDino, params: Dict) -> GroundingDino:
             norm(down + ".norm", stage["merge"]["ln_w"], stage["merge"]["ln_b"])
             lin(down + ".reduction", stage["merge"]["red_w"])
     for si in sw.out_stages:
-        o = p["out_norms"][si]
+        # int keys in a converted tree; str keys once it has been through
+        # an .npz (save_params / load_params)
+        o = p["out_norms"][si if si in p["out_norms"] else str(si)]
         norm(f"{pre}hidden_states_norms.stage{si + 1}", o["w"], o["b"])
 
     # BERT

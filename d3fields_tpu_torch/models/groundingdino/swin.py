@@ -47,6 +47,13 @@ class SwinConfig:
     def tiny() -> "SwinConfig":
         return SwinConfig()
 
+    @staticmethod
+    def base() -> "SwinConfig":
+        """Swin-B/384-w12, the trunk of groundingdino_swinb_cogcoor (HF
+        grounding-dino-base), the second checkpoint the reference downloads."""
+        return SwinConfig(embed_dim=128, depths=(2, 2, 18, 2),
+                          num_heads=(4, 8, 16, 32), window_size=12)
+
     def stage_dim(self, i: int) -> int:
         return self.embed_dim * (2 ** i)
 

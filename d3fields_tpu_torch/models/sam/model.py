@@ -63,6 +63,16 @@ class SamConfig:
         return SamConfig()
 
     @staticmethod
+    def vit_base() -> "SamConfig":
+        return SamConfig(hidden_size=768, num_layers=12, num_heads=12,
+                         mlp_dim=3072, global_attn_indexes=(2, 5, 8, 11))
+
+    @staticmethod
+    def vit_large() -> "SamConfig":
+        return SamConfig(hidden_size=1024, num_layers=24, num_heads=16,
+                         mlp_dim=4096, global_attn_indexes=(5, 11, 17, 23))
+
+    @staticmethod
     def tiny_test() -> "SamConfig":
         return SamConfig(
             hidden_size=32, num_layers=2, num_heads=2, mlp_dim=128,
@@ -74,6 +84,23 @@ class SamConfig:
     @property
     def grid(self) -> int:
         return self.image_size // self.patch_size
+
+
+_ENCODER_WIDTHS = {768: SamConfig.vit_base, 1024: SamConfig.vit_large,
+                   1280: SamConfig.vit_huge}
+
+
+def config_for_encoder_width(hidden: int) -> SamConfig:
+    """The config of a checkpoint's encoder width: 768 = vit-b, 1024 =
+    vit-l, 1280 = vit-h (the checkpoint the reference downloads). The
+    checkpoint loaders (``apps/_backends.py``) read the width from the
+    patch-embed weight."""
+    if hidden not in _ENCODER_WIDTHS:
+        raise ValueError(
+            f"unsupported SAM encoder width {hidden} (know 768 = vit_base, "
+            "1024 = vit_large, 1280 = vit_huge) — pass an explicit cfg"
+        )
+    return _ENCODER_WIDTHS[hidden]()
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,45 @@
-"""State-dict views for the checkpoint converters.
+"""Checkpoint loading utilities: state-dict views, the key audit, and the
+JAX package's ``.npz`` parameter files.
 
-The part of ``d3fields_tpu/utils/convert.py`` that the DINOv2 converters
-use: a lazy per-key numpy view, so that a key-tracking mapping underneath
-sees the converter's real reads.
+Counterpart of ``d3fields_tpu/utils/convert.py``. The port's modules keep
+the parameter names of the checkpoints the reference loads (torch-hub
+DINOv2, huggingface SAM and GroundingDINO, ``XMem.pth``), so a checkpoint
+loads with ``load_state_dict(strict=True)`` once :func:`audit_state_dict`
+has dropped the keys the JAX audit allows unused. Conversion bugs are
+silent, so every other leftover or missing key raises, listing the keys.
+:func:`load_params` reads a pytree that the JAX package's ``save_params``
+wrote; each family's ``load_jax_params`` carries it into the module.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import re
+from typing import Dict, Mapping
 
 import numpy as np
+import torch
+
+#: family -> regexes of checkpoint keys the JAX converters never read
+#: (``d3fields_tpu/utils/convert.py:140-155``):
+#: - dinov2 ``mask_token``: iBOT masking token, inference never uses it;
+#: - sam ``prompt_encoder.shared_embedding``: tied duplicate of
+#:   ``shared_image_embedding``;
+#: - gdino ``relative_position_index``: constant Swin index buffer;
+#:   ``model.decoder.bbox_embed`` / ``bbox_embed.{i>0}``: huggingface ties
+#:   every box head to ``bbox_embed.0``; ``position_ids``: an arange buffer
+#:   older transformers serialised;
+#: - xmem ``num_batches_tracked``: batch-norm step counters.
+ALLOWED_UNUSED = {
+    "dinov2_hub": [r"mask_token"],
+    "sam": [r"^prompt_encoder\.shared_embedding\."],
+    "gdino": [
+        r"relative_position_index",
+        r"^model\.decoder\.bbox_embed\.",
+        r"^bbox_embed\.(?!0\.)",
+        r"position_ids",
+    ],
+    "xmem": [r"num_batches_tracked"],
+}
 
 
 class _NpView(Mapping):
@@ -39,3 +69,80 @@ class _NpView(Mapping):
 def np_view(sd: Mapping) -> _NpView:
     """Wrap a (possibly tracked) state dict for per-key numpy reads."""
     return sd if isinstance(sd, _NpView) else _NpView(sd)
+
+
+def _shapes(sd: Mapping, keys) -> dict:
+    return {k: tuple(np.shape(sd[k])) for k in keys[:20]}
+
+
+def audit_state_dict(model: torch.nn.Module, sd: Mapping, family: str) -> Dict:
+    """``sd`` made ready for ``model.load_state_dict(strict=True)``.
+
+    Every key that ``ALLOWED_UNUSED[family]`` covers is dropped, as the JAX
+    converters never read it. A dropped key that ``model`` holds is then
+    refilled from the module: a tied duplicate from the checkpoint tensor
+    it aliases (so a tie always loads its canonical key, ``bbox_embed.0``,
+    ``shared_image_embedding``), a constant buffer (``relative_position_index``,
+    ``num_batches_tracked``) from the module's own value. Any other key of
+    ``sd`` that ``model`` lacks raises ``ValueError``, and any key of
+    ``model`` that ``sd`` lacks raises ``KeyError``, each listing the keys.
+    """
+    allowed = [re.compile(p) for p in ALLOWED_UNUSED[family]]
+    covered = lambda k: any(p.search(k) for p in allowed)  # noqa: E731
+    own = model.state_dict(keep_vars=True)
+    kept = {k: v for k, v in sd.items() if not covered(k)}
+    extra = sorted(set(kept) - set(own))
+    if extra:
+        raise ValueError(
+            f"{family} checkpoint holds {len(extra)} tensor(s) the model has no place for and "
+            f"the allow-list does not cover: {_shapes(sd, extra)}"
+            f"{' ...' if len(extra) > 20 else ''}")
+    storage = {own[k].data_ptr(): k for k in kept}
+    for k in sorted(set(own) - set(kept)):
+        if covered(k):
+            src = storage.get(own[k].data_ptr())
+            kept[k] = kept[src] if src is not None else own[k].detach()
+    missing = sorted(set(own) - set(kept))
+    if missing:
+        raise KeyError(f"{family} checkpoint lacks {len(missing)} tensor(s) the model needs: "
+                       f"{missing[:20]}{' ...' if len(missing) > 20 else ''}")
+    return kept
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's .npz parameter files (its save_params)
+# ---------------------------------------------------------------------------
+
+_SEP = "/"
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]):
+    root: Dict = {}
+    for path, v in flat.items():
+        parts = path.split(_SEP)
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [fix(node[f"#{i}"]) for i in range(len(node))]
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(root)
+
+
+def load_params(path: str):
+    """Load a pytree that ``d3fields_tpu.utils.convert.save_params`` wrote;
+    returns (params, meta)."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = {
+        k.split(_SEP, 1)[1]: str(flat.pop(k))
+        for k in list(flat)
+        if k.startswith(f"__meta__{_SEP}")
+    }
+    return _unflatten(flat), meta

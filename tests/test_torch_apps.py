@@ -1,10 +1,21 @@
-"""The port's two headline apps end to end on the CPU, held to the JAX
-package's committed goldens at tests/test_golden.py's tolerances:
-``vis_repr --synthetic --step 0.015`` against tests/golden/vis_repr.npz and
-``vis_tracking --synthetic --frames 2 --num_kypts 8 --iters 10`` against
-tests/golden/vis_tracking_fast.npz.
+"""The port's two headline apps end to end on the CPU.
+
+- ``--synthetic``: held to the JAX package's committed goldens at
+  tests/test_golden.py's tolerances: ``vis_repr --synthetic --step 0.015``
+  against tests/golden/vis_repr.npz and ``vis_tracking --synthetic --frames
+  2 --num_kypts 8 --iters 10`` against tests/golden/vis_tracking_fast.npz.
+- The recorded-scene path: a drifting-sphere scene written to disk in the
+  ``camera_{i}/{color,depth}`` layout, random tiny checkpoints written in
+  the reference layouts and a vocab, behind the ``D3F_*`` variables. Both
+  apps run through ``apps/_backends.py`` against the JAX apps on the same
+  files: ``vis_repr`` at the goldens' tolerances, ``vis_tracking``'s staged
+  loop (XMem propagation) at tests/test_torch_serving.py's tolerances for
+  the same stages. The JAX side builds DINOv2 in float32 here (the port's
+  precision; JAX's app builds it in bfloat16). ``--fused`` and ``--fused
+  --segment 2`` are held to the port's staged loop at 1e-5.
 """
 
+import functools
 import os
 import pickle
 
@@ -13,7 +24,25 @@ import pytest
 import torch
 
 from tools.gen_golden import VIS_REPR_ARGS, VIS_TRACKING_FAST_ARGS
+import d3fields_tpu.apps._backends as JB
+from d3fields_tpu import config as jconfig
+from d3fields_tpu.apps import vis_repr as jvis_repr
+from d3fields_tpu.apps import vis_tracking as jvis_tracking
+from d3fields_tpu.models import dinov2 as jd2
+from d3fields_tpu.models.groundingdino import model as jgd
+from d3fields_tpu.models.sam import model as jsam
+from d3fields_tpu.utils import synthetic as jsyn
+from d3fields_tpu_torch import config as tconfig
+from d3fields_tpu_torch import serving
+from d3fields_tpu_torch.apps import _backends as TB
 from d3fields_tpu_torch.apps import vis_repr, vis_tracking
+from d3fields_tpu_torch.models import dinov2 as td2
+from d3fields_tpu_torch.models.groundingdino import model as tgd
+from d3fields_tpu_torch.models.sam import model as tsam
+from d3fields_tpu_torch.utils import io as tio
+from d3fields_tpu_torch.utils import synthetic as tsyn
+
+from test_torch_xmem import tiny_xmem
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -74,18 +103,283 @@ def test_vis_tracking_reproduces_fast_golden(tmp_path):
     np.testing.assert_allclose(losses, want["loss_history"], atol=1e-5)
 
 
-@pytest.mark.parametrize("app, argv, message", [
-    (vis_repr, ["--scene", "mug"], "only --synthetic"),
-    (vis_tracking, ["--data_path", "x"], "only --synthetic"),
-    # the JAX app's reasons (d3fields_tpu/apps/vis_tracking.py:143-152)
-    (vis_tracking, ["--synthetic", "--fused"], "--fused requires the XMem video tracker"),
-    (vis_tracking, ["--synthetic", "--fused", "--segment", "4"],
+# ---------------------------------------------------------------------------
+# the recorded-scene path
+# ---------------------------------------------------------------------------
+
+LABELS = ["ball", "cube"]
+FRAMES, VIEWS, HW = 6, 4, (96, 128)
+# the synthetic scene's workspace (vis_repr.synthetic_inputs, SYNTHETIC_BOUNDARIES)
+REPR_BOUNDS = ["--x_lower", "-0.3", "--x_upper", "0.5", "--y_lower", "-0.3",
+               "--y_upper", "0.35", "--z_lower", "0.001", "--z_upper", "0.3"]
+# a workspace around the two spheres over the 6 frames' drift: 3.9M keypoint
+# candidates at select_keypoints' 2 mm (SYNTHETIC_BOUNDARIES' 36M take ~10 s)
+TRACK_ARGS = ["--query_texts", *LABELS, "--query_thresholds", "0.5", "0.5",
+              "--num_kypts", "8", "--iters", "10",
+              "--x_lower", "-0.16", "--x_upper", "0.3", "--y_lower", "-0.16", "--y_upper", "0.2",
+              "--z_lower", "0.001", "--z_upper", "0.2",
+              "--kypts_z_lower", "0.001", "--kypts_z_upper", "0.2"]
+VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", "ball", "cube", "mug", "red",
+         "can", "shoe", "fork", "##s"]
+
+
+def _scene(t):
+    offs = np.array([[0.008 * t, 0.004 * t, 0.0], [-0.005 * t, 0.006 * t, 0.0]])
+    return tsyn.render_sphere_scene(num_views=VIEWS, H=HW[0], W=HW[1], feat_dim=8,
+                                    sphere_offsets=offs)
+
+
+@pytest.fixture(scope="module")
+def recorded(tmp_path_factory):
+    """The scene, the checkpoints and the vocab on disk."""
+    root = tmp_path_factory.mktemp("recorded")
+    scene = str(root / "scene")
+    for t in range(FRAMES):
+        tio.save_frame(scene, t, _scene(t))
+    dino = td2.init_params(td2.Dinov2Config.tiny_test(), device="cpu")
+    hub = dict(dino.state_dict(), mask_token=torch.zeros(1, dino.cfg.hidden_size))
+    xmem, _, xkw = tiny_xmem(seed=2)
+    gdino = dict(jgd.build_random_hf(jgd.GroundingDinoConfig.tiny_test(), 0).state_dict())
+    # the text features after the encoder scaled by 0.05, as chip_smoke.py
+    # does: at huggingface's init scale the random contrastive logits
+    # saturate the sigmoid and no box threshold separates the boxes
+    last = "model.encoder.layers.1.text_enhancer_layer.layer_norm_after."
+    for leaf in ("weight", "bias"):
+        gdino[last + leaf] = gdino[last + leaf] * 0.05
+    files = {
+        "D3F_DINOV2_CKPT": (hub, "dinov2.pth"),
+        "D3F_SAM_CKPT": (jsam.build_random_hf(jsam.SamConfig.tiny_test(), 0).state_dict(),
+                         "sam.pth"),
+        "D3F_GDINO_CKPT": (gdino, "gdino.pth"),
+        "D3F_XMEM_CKPT": (xmem.state_dict(), "xmem.pth"),
+    }
+    env = {}
+    for var, (sd, name) in files.items():
+        env[var] = str(root / name)
+        torch.save(dict(sd), env[var])
+    env["D3F_BERT_VOCAB"] = str(root / "vocab.txt")
+    (root / "vocab.txt").write_text("\n".join(VOCAB) + "\n", encoding="utf-8")
+    return {"scene": scene, "env": env, "xmem_kw": dict(xkw, size=-1), "root": root}
+
+
+class _Float32Backbone(jd2.Dinov2Backbone):
+    """The JAX backbone at the port's precision (its app asks bfloat16)."""
+
+    def __init__(self, params, cfg, compute_dtype="float32", *args, **kwargs):
+        super().__init__(params, cfg, "float32", *args, **kwargs)
+
+
+@pytest.fixture
+def recorded_env(recorded, monkeypatch):
+    """``D3F_*`` pointed at the files, and the tiny configs in place of the
+    production ones in both packages (test-side only)."""
+    for var, path in recorded["env"].items():
+        monkeypatch.setenv(var, path)
+    monkeypatch.setenv("D3F_COMPILE_CACHE", "0")
+    monkeypatch.setattr(td2.Dinov2Config, "vit_large", staticmethod(td2.Dinov2Config.tiny_test))
+    monkeypatch.setattr(jd2.Dinov2Config, "vit_large", staticmethod(jd2.Dinov2Config.tiny_test))
+    monkeypatch.setattr(jd2, "Dinov2Backbone", _Float32Backbone)
+    monkeypatch.setattr(tsam, "_ENCODER_WIDTHS", {32: tsam.SamConfig.tiny_test})
+    monkeypatch.setattr(jsam, "_ENCODER_WIDTHS", {32: jsam.SamConfig.tiny_test})
+    monkeypatch.setattr(tgd, "_TRUNKS", {8: ("tiny", tgd.GroundingDinoConfig.tiny_test)})
+    monkeypatch.setattr(jgd, "_TRUNKS", {8: ("tiny", jgd.GroundingDinoConfig.tiny_test)})
+    kw = recorded["xmem_kw"]
+    monkeypatch.setattr(tconfig, "XMemConfig", functools.partial(tconfig.XMemConfig, **kw))
+    monkeypatch.setattr(jconfig, "XMemConfig", functools.partial(jconfig.XMemConfig, **kw))
+    return recorded
+
+
+def _sphere_masks(monkeypatch):
+    """The analytic sphere masks of frame 0 as both packages' mask backend,
+    swapped in through ``_backends.build_mask_backend`` (the seam of
+    tests/test_apps.py:858): random detector weights find no stable
+    instances to track. After frame 0, XMem propagates."""
+    scene0 = _scene(0)
+    monkeypatch.setattr(TB, "build_mask_backend",
+                        lambda *a, **k: tsyn.sphere_mask_backend(scene0, LABELS))
+    monkeypatch.setattr(JB, "build_mask_backend",
+                        lambda *a, **k: jsyn.sphere_mask_backend(scene0, LABELS))
+
+
+def _box_threshold(scene):
+    """A box threshold between two detection scores of the random detector
+    on frame 0 that lie > 1e-3 apart, with 1-8 boxes above it: the JAX and
+    the port's scores agree to 1e-4 (tests/test_torch_groundingdino.py)."""
+    backend = TB.build_mask_backend(device="cpu")
+    rgb = np.ascontiguousarray(tio.load_frame(scene, 0, VIEWS)["color"][..., ::-1])
+    dets = backend.detector.predict_with_classes_batch(rgb, ["ball"], box_threshold=-1.0)
+    conf = np.sort(np.concatenate([d.confidence for d in dets]))[::-1]
+    k = 1 + int(np.argmax(conf[1:8] - conf[2:9]))  # the widest gap below the 2nd-8th
+    assert conf[k] - conf[k + 1] > 1e-3, conf[:10]
+    return (conf[k] + conf[k + 1]) / 2
+
+
+def test_vis_repr_recorded_scene_matches_jax(tmp_path, recorded_env):
+    scene = recorded_env["scene"]
+    thr = _box_threshold(scene)
+    argv = ["--data_path", scene, "--t", "0", "--query_texts", "ball", "--query_thresholds",
+            str(thr), "--step", "0.015", *REPR_BOUNDS]
+    got, want = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    assert vis_repr.main(argv + ["--out", str(tmp_path / "port"), "--dump_arrays", got],
+                         device="cpu") == 0
+    assert jvis_repr.main(argv + ["--out", str(tmp_path / "jax"), "--dump_arrays", want]) == 0
+    got, want = np.load(got), np.load(want)
+    np.testing.assert_allclose(got["dist"], want["dist"], atol=1e-4)
+    np.testing.assert_array_equal(got["triangles"], want["triangles"])
+    np.testing.assert_allclose(got["vertices"], want["vertices"], atol=1e-3)
+    assert got["mask"].shape == want["mask"].shape
+    np.testing.assert_allclose(got["mask"], want["mask"], atol=1e-4)
+    np.testing.assert_allclose(got["color"], want["color"], atol=1e-3)
+    np.testing.assert_allclose(got["desc_pca"], want["desc_pca"], atol=1e-3)
+
+
+def test_vis_repr_scene_resolves_under_data_root(tmp_path, monkeypatch):
+    """``--scene mug --data_root R`` reads R/<the mug scene's directory>,
+    with the scene table's query and threshold, as the JAX app does."""
+    import d3fields_tpu.utils.io as jio
+
+    class Read(Exception):
+        pass
+
+    seen = []
+
+    def loader(path, t, num_cam):
+        seen.append((path, t, num_cam))
+        raise Read
+
+    monkeypatch.setattr(tio, "load_frame", loader)
+    monkeypatch.setattr(jio, "load_frame", loader)
+    for app in (vis_repr, jvis_repr):
+        with pytest.raises(Read):
+            app.main(["--scene", "mug", "--data_root", str(tmp_path), "--t", "3"],
+                     **({"device": "cpu"} if app is vis_repr else {}))
+    want = (os.path.join(str(tmp_path), vis_repr.SCENES["mug"][0]), 3, 4)
+    assert seen == [want, want]
+    assert vis_repr.SCENES == jvis_repr.SCENES
+
+
+def test_vis_tracking_recorded_staged_matches_jax(tmp_path, recorded_env, monkeypatch):
+    """3 frames: consensus and XMem seeding on frame 0, propagation on
+    frames 1-2, 10 Adam steps a frame; the port against the JAX app at
+    tests/test_torch_serving.py's tolerances for the same stages."""
+    _sphere_masks(monkeypatch)
+    argv = ["--data_path", recorded_env["scene"], "--frames", "3", *TRACK_ARGS]
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert vis_tracking.main(argv + ["--out", port], device="cpu") == 0
+    assert jvis_tracking.main(argv + ["--out", ref]) == 0
+    (match, src, losses), (jmatch, jsrc, jlosses) = (_tracking_outputs(d, 3) for d in (port, ref))
+    assert match.shape == jmatch.shape == (3, 2, 8, 3)
+    np.testing.assert_allclose(src, jsrc, atol=5e-3)
+    np.testing.assert_allclose(match, jmatch, atol=5e-3)
+    np.testing.assert_allclose(losses, jlosses, rtol=5e-3, atol=5e-3)
+
+
+def _device_resize_backbone(monkeypatch):
+    """DINOv2 from the checkpoint behind a ``resize_mode='device'`` wrapper,
+    the resize FusedFrameStep runs, so that the staged loop computes what
+    the fused frames do."""
+    build = TB.build_feature_backend
+
+    def device_mode(*args, **kwargs):
+        fb = build(*args, **kwargs)
+        return td2.Dinov2Backbone(fb.model, resize_mode="device", device=fb.device)
+
+    monkeypatch.setattr(TB, "build_feature_backend", device_mode)
+
+
+def test_vis_tracking_fused_and_segment_equal_the_staged_loop(tmp_path, recorded_env,
+                                                              monkeypatch):
+    """6 frames: the staged loop, --fused (frames 1-5 through
+    FusedFrameStep.step) and --fused --segment 2 (two 2-frame segments,
+    then the 1-frame tail through step), all equal at 1e-5."""
+    _sphere_masks(monkeypatch)
+    _device_resize_backbone(monkeypatch)
+    calls = {"segment": [], "step": 0}
+    step, step_segment = serving.FusedFrameStep.step, serving.FusedFrameStep.step_segment
+
+    def counted_step(self, *args, **kwargs):
+        calls["step"] += 1
+        return step(self, *args, **kwargs)
+
+    def counted_segment(self, frames, *args, **kwargs):
+        calls["segment"].append(frames.shape[0])
+        return step_segment(self, frames, *args, **kwargs)
+
+    monkeypatch.setattr(serving.FusedFrameStep, "step", counted_step)
+    monkeypatch.setattr(serving.FusedFrameStep, "step_segment", counted_segment)
+    argv = ["--data_path", recorded_env["scene"], *TRACK_ARGS]
+    outs = {}
+    for name, extra in (("staged", []), ("fused", ["--fused"]),
+                        ("segment", ["--fused", "--segment", "2", "--pipeline_depth", "2"])):
+        before = (list(calls["segment"]), calls["step"])
+        out = str(tmp_path / name)
+        assert vis_tracking.main(argv + extra + ["--out", out], device="cpu") == 0
+        outs[name] = _tracking_outputs(out, FRAMES)
+        if name == "fused":
+            assert calls["step"] - before[1] == FRAMES - 1 and calls["segment"] == before[0]
+        if name == "segment":
+            assert calls["segment"][len(before[0]):] == [2, 2]
+            assert calls["step"] - before[1] == 1
+    for name in ("fused", "segment"):
+        for got, want in zip(outs[name], outs["staged"]):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=name)
+    assert np.isfinite(outs["staged"][0]).all()
+
+
+def test_vis_tracking_fused_rebuilds_the_backbone_for_device_resize(tmp_path, recorded_env,
+                                                                    monkeypatch):
+    """The loaded backbone resizes as Pillow does; --fused wraps the same
+    model in a 'device'-resize backbone for FusedFrameStep."""
+    _sphere_masks(monkeypatch)
+    seen = []
+    init = serving.FusedFrameStep.__init__
+
+    def spy(self, backbone, *args, **kwargs):
+        seen.append((backbone, kwargs))
+        init(self, backbone, *args, **kwargs)
+
+    monkeypatch.setattr(serving.FusedFrameStep, "__init__", spy)
+    out = str(tmp_path / "fused")
+    argv = ["--data_path", recorded_env["scene"], "--frames", "2", "--fused", *TRACK_ARGS]
+    assert vis_tracking.main(argv + ["--out", out], device="cpu") == 0
+    (bb, kwargs), = seen
+    assert bb.resize_mode == "device" and bb.pos_interpolate == "hub"
+    assert kwargs["xmem_bgr_to_rgb"] is True
+    assert np.isfinite(_tracking_outputs(out, 2)[0]).all()
+
+
+SCENE = "<scene>"
+REPR_ARGV = ["--data_path", SCENE, "--t", "0", "--query_texts", "ball", "--query_thresholds", "0.3"]
+
+
+@pytest.mark.parametrize("app, argv, env, error, message", [
+    # the JAX _backends' messages (d3fields_tpu/apps/_backends.py:81-106)
+    (vis_repr, REPR_ARGV, (), FileNotFoundError, "DINOv2 checkpoint not found; set D3F_DINOV2"),
+    (vis_repr, REPR_ARGV, ("D3F_DINOV2_CKPT", "D3F_GDINO_CKPT"), FileNotFoundError,
+     "SAM/GroundingDINO checkpoints not found; set D3F_SAM_CKPT"),
+    (vis_tracking, ["--data_path", SCENE], (), FileNotFoundError,
+     "DINOv2 checkpoint not found"),
+    # the JAX app's reasons (d3fields_tpu/apps/vis_tracking.py:143-152, 265-270)
+    (vis_tracking, ["--data_path", SCENE, "--frames", "1", "--fused", *TRACK_ARGS],
+     ("D3F_DINOV2_CKPT",), SystemExit, "--fused needs the XMem video tracker — set D3F_XMEM_CKPT"),
+    (vis_tracking, ["--synthetic", "--fused"], (), SystemExit,
      "--fused requires the XMem video tracker"),
-    (vis_tracking, ["--synthetic", "--segment", "4"], "add --fused"),
+    (vis_tracking, ["--synthetic", "--fused", "--segment", "4"], (), SystemExit,
+     "--fused requires the XMem video tracker"),
+    (vis_tracking, ["--synthetic", "--segment", "4"], (), SystemExit, "add --fused"),
 ])
-def test_unported_paths_exit_with_a_message(app, argv, message):
-    with pytest.raises(SystemExit, match=message):
-        app.main(argv, device="cpu")
+def test_unported_paths_exit_with_a_message(tmp_path, recorded_env, monkeypatch, app, argv,
+                                            env, error, message):
+    """Missing checkpoints, and the flag combinations the JAX app refuses.
+    ``env`` lists the D3F_* variables left set."""
+    for var in recorded_env["env"]:
+        if var not in env:
+            monkeypatch.delenv(var)
+    if app is vis_tracking:
+        _sphere_masks(monkeypatch)
+    argv = [recorded_env["scene"] if a == SCENE else a for a in argv]
+    with pytest.raises(error, match=message):
+        app.main(argv + ["--out", str(tmp_path / "out")], device="cpu")
 
 
 def test_apps_run_on_cuda_unless_asked(tmp_path):
