@@ -46,7 +46,18 @@ seeded generators:
    their backends from those files (``apps/_backends.py``): ``vis_repr
    --data_path`` is held bit for bit to ``vis_repr.run`` with the in-memory
    models, and ``vis_tracking --data_path --fused --segment 2`` to the
-   staged loop over the same frames.
+   staged loop over the same frames; ``precompute_pca --images`` on 4 of
+   the recorded colour frames with the written DINOv2 checkpoint;
+10. ``eval_xmem``: XMem evaluation (``apps/eval_xmem.py``) at full width on
+   three 480x854 (DAVIS 480p) videos of 24 PNG frames with paletted
+   annotations, one of them with an object entering on frame 3:
+   sequential, ``--video_batch 2`` and ``--flip``, then ``merge_scores``;
+   held to the port's CPU run and batched to sequential.
+
+The ``tracking`` phase and the recorded tracking runs also write
+``tracking.avi`` (the ``TrackVis`` mosaics, uncompressed AVI) in the app's
+consumer and hold its first and last frames to a ``TrackVis`` recomputed
+from the saved match points.
 
 Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
@@ -1170,7 +1181,11 @@ def vis_repr_backends(dev, backbone, seg_backend) -> dict:
 def tracking(dev) -> dict:
     """vis_tracking's staged loop at full width: 4 frames of the drifting
     spheres at 240x320 with 1,024-d descriptors, 100 keypoints per instance
-    at res 0.002, ``TrackingConfig()`` (100 Adam steps) at every frame."""
+    at res 0.002, ``TrackingConfig()`` (100 Adam steps) at every frame, and
+    the app's consumer: each frame's ``TrackVis`` mosaic into tracking.avi
+    and its match_pts pickle, held afterwards to a ``TrackVis`` recomputed
+    from the pickles. ``Fusion.select_features_rand_v2`` on frame 0's state
+    is held to the CPU's."""
     from d3fields_tpu_torch import Fusion
     from d3fields_tpu_torch.apps.vis_tracking import SYNTHETIC_BOUNDARIES, synthetic_frame
     from d3fields_tpu_torch.config import TrackingConfig
@@ -1178,9 +1193,13 @@ def tracking(dev) -> dict:
     from d3fields_tpu_torch.track.keypoints import select_keypoints
     from d3fields_tpu_torch.track.rigid import (
         boundary_vectors, rigid_tracking_steps, stack_keypoints)
+    from d3fields_tpu_torch.utils.io import save_pickle
     from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
+    from d3fields_tpu_torch.utils.visualization import TrackVis, jet_colors
 
     labels, frames, res_kp, per_inst = ["shoe", "shoe"], 4, 0.002, 100
+    out_dir = os.path.join(OUT, "tracking")
+    os.makedirs(out_dir, exist_ok=True)
     scenes = [synthetic_frame(t, 4, 240, 320, 1024) for t in range(frames)]
 
     def fusion_at(t, device, fus=None):
@@ -1212,6 +1231,9 @@ def tracking(dev) -> dict:
             src_feats, last = stack_keypoints(feats, pts, dev)
             lo, hi = boundary_vectors(SYNTHETIC_BOUNDARIES, dev)
             first = None
+            track_info = {f"inst_{i}": {"src_pts_color": (jet_colors(
+                np.linspace(0, 1, p.shape[0])) * 255).astype(np.uint8)} for p, i in zip(pts, ids)}
+            vis = TrackVis(scenes[0]["pose"], scenes[0]["K"], out_dir)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         out = rigid_tracking_steps(fus.state, src_feats, last, lo, hi, cfg)
@@ -1224,6 +1246,12 @@ def tracking(dev) -> dict:
         true = TRACK_DRIFT if t else np.zeros_like(TRACK_DRIFT)
         if first is None:
             first = match.mean(1).cpu().numpy()
+        # vis_tracking's consumer: the video frame and the pickle
+        t3 = time.perf_counter()
+        pts_list = list(match.cpu().numpy())
+        vis.visualize_match_pts(pts_list, scenes[t]["color"], track_info)
+        row["trackvis_ms"] = (time.perf_counter() - t3) * 1e3
+        save_pickle(os.path.join(out_dir, f"match_pts_{t:06d}.pkl"), pts_list)
         row.update({
             "translation": disp.tolist(), "true_drift": true.tolist(),
             "translation_err": max_err(disp, true), "t_err": max_err(out["t"].cpu(), true),
@@ -1238,11 +1266,16 @@ def tracking(dev) -> dict:
         last = match
     counts = launch_counts()
     check(sum(counts.values()) == 0, f"the tracking path launched {counts}")
+    vis.close()
+    video = check_tracking_video(out_dir, frames, [sc["color"] for sc in scenes],
+                                 scenes[0]["pose"], scenes[0]["K"], track_info)
 
     # frame 0's keypoints against the port's CPU run of the same frame
     t0 = time.perf_counter()
-    cpu_feats, cpu_pts, cpu_ids = select(fusion_at(0, torch.device("cpu")))
+    cpu_fus = fusion_at(0, torch.device("cpu"))
+    cpu_feats, cpu_pts, cpu_ids = select(cpu_fus)
     cpu_seconds = time.perf_counter() - t0
+    v2 = hold_depth_keypoints(fusion_at(0, dev), cpu_fus, per_inst)
     check(cpu_ids == ids, f"keypoint instances {ids} on the card, {cpu_ids} on the CPU")
     check(all(np.array_equal(a, b) for a, b in zip(pts, cpu_pts)),
           "frame 0's src_pts differ between the card and the CPU")
@@ -1257,7 +1290,8 @@ def tracking(dev) -> dict:
           "translation_err": [r["translation_err"] for r in rows],
           "drift_atol": TRACK_DRIFT_ATOL, "src_pts_identical_to_cpu": True,
           "src_feats_card_vs_cpu_max_abs_err": feat_err, "cpu_select_seconds": cpu_seconds,
-          "launches": counts})
+          "trackvis_ms": [r["trackvis_ms"] for r in rows], "tracking_video": video,
+          "select_features_rand_v2": v2, "launches": counts})
     check(feat_err <= 1e-5, f"keypoint descriptors card vs CPU: {feat_err}")
     # one frame's 100 steps, and 64 of the keypoint grid query's tiles, traced
     profile_stage("tracking_frame", lambda: rigid_tracking_steps(
@@ -1268,6 +1302,53 @@ def tracking(dev) -> dict:
     profile_stage("select_keypoints_64_tiles",
                   lambda: ffusion.batch_eval(fus.state, sample, ("mask",), tile=32768))
     return counts
+
+
+def check_tracking_video(out_dir: str, frames: int, colors, pose, K, track_info) -> dict:
+    """tracking.avi has one frame per tracked frame, and its first and last
+    frames equal a ``TrackVis`` recomputed from the match_pts pickles."""
+    from d3fields_tpu_torch.utils.avi import read_avi
+    from d3fields_tpu_torch.utils.io import load_pickle
+    from d3fields_tpu_torch.utils.visualization import TrackVis
+
+    video = read_avi(os.path.join(out_dir, "tracking.avi"))
+    check(video.shape[0] == frames, f"{out_dir}/tracking.avi: {video.shape[0]} frames, "
+                                    f"{frames} tracked")
+    again = TrackVis(pose, K, os.path.join(out_dir, "recomputed"))
+    for t in range(frames):
+        mosaic = again.visualize_match_pts(
+            load_pickle(os.path.join(out_dir, f"match_pts_{t:06d}.pkl")), colors[t], track_info)
+        if t in (0, frames - 1):
+            check(np.array_equal(video[t], mosaic),
+                  f"{out_dir}/tracking.avi frame {t} differs from TrackVis of its pickle")
+    again.close()
+    return {"frames": int(video.shape[0]), "mosaic_hw": list(video.shape[1:3]),
+            "first_and_last_equal_recomputed": True}
+
+
+def hold_depth_keypoints(fus, cpu_fus, n_per_instance: int) -> dict:
+    """``Fusion.select_features_rand_v2`` on the card against the CPU:
+    points identical, descriptors within 1e-5, the bound of the phase's
+    grid keypoints (1,024-d descriptors summed over 4 views in float32 in
+    another order: 3.6e-6 apart on an H100)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = fus.select_features_rand_v2(None, n_per_instance, per_instance=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = cpu_fus.select_features_rand_v2(None, n_per_instance, per_instance=True)
+    check(card.keys() == cpu.keys() and len(card) > 0,
+          f"depth keypoints: instances {sorted(card)} on the card, {sorted(cpu)} on the CPU")
+    errs = {}
+    for k in card:
+        check(np.array_equal(card[k]["src_pts"], cpu[k]["src_pts"]),
+              f"depth keypoints {k}: points differ between the card and the CPU")
+        a, b = card[k]["src_feats"], cpu[k]["src_feats"]
+        errs[k] = max_err(a, b)
+        check(errs[k] <= 1e-5, f"depth keypoints {k}: descriptors card vs CPU {errs[k]}")
+    return {"instances": sorted(card), "points": {k: list(v["src_pts"].shape)
+                                                  for k, v in card.items()},
+            "src_feats_card_vs_cpu_max_abs_err": errs, "ms": ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1729,15 +1810,17 @@ def recorded_scene(dev, serving_ms: dict) -> dict:
                 timed_function(_backends, "build_video_tracker_factory", times):
             repr_row, repr_counts = recorded_vis_repr(dev, dmodel, gmodel, smodel, env)
             track_row, track_counts = recorded_tracking(dev)
+            pca_row, pca_counts = recorded_precompute_pca(dev)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    counts = {k: repr_counts[k] + track_counts[k] for k in repr_counts}
+    counts = {k: repr_counts[k] + track_counts[k] + pca_counts[k] for k in repr_counts}
     emit({"phase": "recorded_scene", "views": 4, "image_hw": list(XMEM_RIG_HW),
           "frames": RECORDED_FRAMES, "write_scene_seconds": scene_seconds,
           "checkpoint_bytes": sizes, "checkpoint_write_seconds": write_s,
           "checkpoint_load_seconds": {k: [ms / 1e3 for ms in v] for k, v in times.items()
                                       if k.startswith("build_")},
           "load_frame_ms": times["load_frame"], "vis_repr": repr_row, "tracking": track_row,
+          "precompute_pca": pca_row,
           "serving_step_fused_frame_ms": serving_ms["fused_frame_ms"],
           "serving_step_staged_frame_ms": serving_ms["staged_frame_ms"],
           "mask_backend_of_tracking": "analytic sphere masks through "
@@ -1800,6 +1883,7 @@ def recorded_tracking(dev):
     from d3fields_tpu_torch.apps import _backends, vis_tracking
     from d3fields_tpu_torch.models import dinov2
     from d3fields_tpu_torch.track import rigid
+    from d3fields_tpu_torch.utils import io, visualization
     from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
 
     build = _backends.build_feature_backend
@@ -1814,10 +1898,11 @@ def recorded_tracking(dev):
     argv = ["--data_path", SCENE_DIR, "--frames", str(RECORDED_FRAMES), "--query_texts", "shoe",
             "--query_thresholds", "0.5", *TRACK_BOUNDS]
     staged_dir, fused_dir = os.path.join(OUT, "recorded_staged"), os.path.join(OUT, "recorded_fused")
-    staged_t, fused_t = {}, {}
+    staged_t, fused_t, vis_t = {}, {}, {}
     with mock.patch.object(_backends, "build_mask_backend",
                            lambda *a, **k: sphere_mask_backend(scene0, ["shoe", "shoe"])), \
-            mock.patch.object(_backends, "build_feature_backend", device_resize):
+            mock.patch.object(_backends, "build_feature_backend", device_resize), \
+            timed_function(visualization.TrackVis, "visualize_match_pts", vis_t):
         with timed_function(Fusion, "update", staged_t), \
                 timed_function(Fusion, "text_queries_for_inst_mask", staged_t), \
                 timed_function(rigid, "rigid_tracking_steps", staged_t):
@@ -1837,6 +1922,12 @@ def recorded_tracking(dev):
           f"fused frames {fused_t}: want two 2-frame segments and a 1-frame tail")
     staged, fused = tracking_outputs(staged_dir, RECORDED_FRAMES), \
         tracking_outputs(fused_dir, RECORDED_FRAMES)
+    obs = [io.load_frame(SCENE_DIR, t, 4) for t in range(RECORDED_FRAMES)]
+    videos = {}
+    for name, d in (("staged", staged_dir), ("fused", fused_dir)):
+        info = io.load_pickle(os.path.join(d, "src_feats.pkl"))
+        videos[name] = check_tracking_video(d, RECORDED_FRAMES, [o["color"] for o in obs],
+                                            obs[0]["pose"], obs[0]["K"], info)
     for k in staged:
         check(np.isfinite(staged[k]).all(), f"staged {k} is not finite")
     errs = held("recorded fused vs staged", fused, staged, dict.fromkeys(staged, SERVING_ATOL))
@@ -1848,9 +1939,169 @@ def recorded_tracking(dev):
             "step_segment_ms": fused_t["step_segment"], "step_ms": fused_t["step"],
             "staged_main_seconds": staged_s, "fused_main_seconds": fused_s,
             "fused_vs_staged_max_abs_err": errs, "atol": SERVING_ATOL,
+            "trackvis_ms": vis_t["visualize_match_pts"], "tracking_videos": videos,
             "translation_per_frame": drift.tolist(),
             "launches": {"staged": counts, "fused": fcounts}}, \
         {k: counts[k] + fcounts[k] for k in counts}
+
+
+def recorded_precompute_pca(dev):
+    """``precompute_pca --images`` on 4 of the recorded colour PNGs at
+    ``--patch_h/w 75`` with the written DINOv2 checkpoint: the components
+    finite and orthonormal within 1e-5."""
+    from d3fields_tpu_torch.apps import precompute_pca
+    from d3fields_tpu_torch.ops.pca import PCAParams
+
+    images = [os.path.join(SCENE_DIR, f"camera_{v}", "color", "0.png") for v in range(4)]
+    out = os.path.join(OUT, "pca.pkl")
+    t0 = time.perf_counter()
+    code, counts = reset_and_count(lambda: precompute_pca.main(
+        ["--images", *images, "--patch_h", "75", "--patch_w", "75", "--out", out], device=dev))
+    seconds = time.perf_counter() - t0
+    check(code == 0, "precompute_pca --images exited with an error")
+    params = PCAParams.load(out)
+    comps = params.components.astype(np.float64)
+    ortho = max_err(comps @ comps.T, np.eye(3))
+    check(comps.shape == (3, params.mean.shape[0]) and np.isfinite(comps).all()
+          and np.isfinite(params.mean).all()
+          and ortho <= 1e-5, f"precompute_pca components {comps.shape}, orthonormal to {ortho}")
+    return {"images": len(images), "patch_hw": [75, 75], "seconds": seconds,
+            "components": list(comps.shape), "orthonormal_max_err": ortho,
+            "launches": counts}, counts
+
+
+# ---------------------------------------------------------------------------
+# slice 7: XMem evaluation (eval_xmem, merge_scores) at DAVIS 480p
+# ---------------------------------------------------------------------------
+
+EVAL_DIR = os.path.join(OUT, "eval_xmem")
+EVAL_HW = (480, 854)   # DAVIS 480p
+EVAL_FRAMES = 24
+EVAL_HOLD_FRAMES = 3   # video 1's first propagated frames held to the CPU
+EVAL_ENTRY = 3         # video 3's object 2 is first annotated on this frame
+
+
+def write_eval_videos(root: str) -> dict:
+    """Three 480x854 drifting-sphere videos of EVAL_FRAMES PNG frames in the
+    generic ``<video>/{frames,masks}`` layout, densely annotated with
+    paletted index masks: vid_1 and vid_2 (two drifts) carry both spheres
+    from frame 0; vid_3 is vid_1's frames with sphere 2 annotated from
+    frame EVAL_ENTRY (the multi-group path). An ImageSets split holds vid_1
+    alone, for the CPU run."""
+    from d3fields_tpu_torch.utils.png import save_png
+    from d3fields_tpu_torch.utils.synthetic import render_sphere_scene
+    from d3fields_tpu_torch.utils.visualization import save_index_mask_png
+
+    drifts = {"vid_1": np.array([[0.008, 0.004, 0.0], [-0.005, 0.006, 0.0]]),
+              "vid_2": np.array([[-0.006, 0.003, 0.0], [0.004, -0.005, 0.0]])}
+    for t in range(EVAL_FRAMES):
+        for vid, drift in drifts.items():
+            sc = render_sphere_scene(num_views=1, H=EVAL_HW[0], W=EVAL_HW[1], feat_dim=4,
+                                     focal=520.0, sphere_offsets=drift * t)
+            sm = sc["sphere_masks"][0]
+            index = np.where(sm[0], 1, np.where(sm[1], 2, 0)).astype(np.uint8)
+            videos = [(vid, index)]
+            if vid == "vid_1":
+                videos.append(("vid_3", np.where(index == 2, 2 if t >= EVAL_ENTRY else 0,
+                                                 index).astype(np.uint8)))
+            for name, mask in videos:
+                for sub in ("frames", "masks"):
+                    os.makedirs(os.path.join(root, name, sub), exist_ok=True)
+                save_png(os.path.join(root, name, "frames", f"{t:05d}.png"), sc["color"][0],
+                         filter_type=0)
+                save_index_mask_png(os.path.join(root, name, "masks", f"{t:05d}.png"), mask)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    with open(os.path.join(root, "ImageSets", "hold.txt"), "w") as f:
+        f.write("vid_1\n")
+    return {"videos": ["vid_1", "vid_2", "vid_3"], "frames": EVAL_FRAMES,
+            "image_hw": list(EVAL_HW), "object_2_enters_vid_3_at": EVAL_ENTRY}
+
+
+def eval_scores(out: str, vid: str, t: int) -> np.ndarray:
+    """A saved --save_scores frame as (1, O+1, H, W) float32."""
+    return np.load(os.path.join(out, vid, f"{t:05d}.npy")).astype(np.float32).transpose(
+        2, 0, 1)[None]
+
+
+def eval_xmem(dev) -> dict:
+    """``apps/eval_xmem.py`` at full width (``XMemConfig()``, the ``xmem``
+    phase's seeded weights written as XMem.pth and read through
+    ``--ckpt``) on three 480x854 videos of 24 frames, at ``--size 480``:
+    sequential, ``--video_batch 2`` and ``--flip``, all with
+    ``--save_scores``; then ``merge_scores`` of the plain and the flipped
+    scores. Held: vid_1's first propagated frames to the port's CPU run and
+    the batched scores to the sequential ones (XMEM_PROB_ATOL,
+    XMEM_MIN_AGREE; the scores are float16 files); J, F and JF in [0, 1];
+    the merged masks' shape and labels."""
+    import shutil
+
+    from d3fields_tpu_torch.apps import eval_xmem as app
+    from d3fields_tpu_torch.apps import merge_scores
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.utils.png import read_png
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    data = os.path.join(EVAL_DIR, "data")
+    t0 = time.perf_counter()
+    layout = write_eval_videos(data)
+    write_seconds = time.perf_counter() - t0
+    ckpt = os.path.join(EVAL_DIR, "XMem.pth")
+    cfg = XMemConfig()
+    torch.save({k: v.cpu() for k, v in xmem_model(dev, cfg, seed=5).state_dict().items()}, ckpt)
+    base = ["--data_root", data, "--frames", "0", "--size", "480", "--ckpt", ckpt,
+            "--key_dim", str(cfg.key_dim), "--value_dim", str(cfg.value_dim),
+            "--hidden_dim", str(cfg.hidden_dim), "--save_scores"]
+    runs, counts = {}, {}
+    try:
+        for name, extra in (("sequential", []), ("batched", ["--video_batch", "2"]),
+                            ("flip", ["--flip"])):
+            out = os.path.join(EVAL_DIR, name)
+            t0 = time.perf_counter()
+            code, counts[name] = reset_and_count(lambda: app.main(base + extra + ["--out", out],
+                                                                  device=dev))
+            seconds = time.perf_counter() - t0
+            check(code == 0, f"eval_xmem {name} exited with an error")
+            check(sum(counts[name].values()) == 0, f"eval_xmem {name} launched {counts[name]}")
+            with open(os.path.join(out, "metrics.json")) as f:
+                g = json.load(f)["global"]
+            check(all(0.0 <= g[k] <= 1.0 for k in ("J", "F", "JF")), f"eval_xmem {name}: {g}")
+            runs[name] = {"fps": g["fps"], "ms_per_frame": 1e3 / g["fps"], "J": g["J"],
+                          "F": g["F"], "JF": g["JF"], "fg_iou": g["fg_iou_frame_mean"],
+                          "wall_seconds": seconds}
+        t0 = time.perf_counter()
+        cpu_out = os.path.join(EVAL_DIR, "cpu")
+        check(app.main(base + ["--split", "hold", "--frames", str(EVAL_HOLD_FRAMES + 1),
+                               "--out", cpu_out], device="cpu") == 0, "eval_xmem on the CPU")
+        cpu_seconds = time.perf_counter() - t0
+    finally:
+        os.remove(ckpt)
+    seq, bat = os.path.join(EVAL_DIR, "sequential"), os.path.join(EVAL_DIR, "batched")
+    holds = [{"frame": t, **hold_probs(f"eval_xmem vid_1 frame {t} card vs CPU",
+                                       eval_scores(seq, "vid_1", t), eval_scores(cpu_out, "vid_1", t))}
+             for t in range(1, EVAL_HOLD_FRAMES + 1)]
+    batch_holds = {vid: [hold_probs(f"eval_xmem {vid} frame {t} batched vs sequential",
+                                    eval_scores(bat, vid, t), eval_scores(seq, vid, t))
+                         for t in range(1, EVAL_FRAMES)] for vid in ("vid_1", "vid_2")}
+    merged = os.path.join(EVAL_DIR, "merged")
+    check(merge_scores.main(["--inputs", seq, os.path.join(EVAL_DIR, "flip"), "--out", merged],
+                            device=dev) == 0, "merge_scores exited with an error")
+    for vid in layout["videos"]:
+        names = sorted(os.listdir(os.path.join(merged, vid)))
+        check(len(names) == EVAL_FRAMES - 1, f"merge_scores {vid}: {len(names)} frames")
+        for n in names:
+            m = read_png(os.path.join(merged, vid, n))
+            check(m.shape == EVAL_HW and int(m.max()) <= 2, f"merged {vid}/{n}: {m.shape}")
+    shutil.rmtree(data, ignore_errors=True)
+    emit({"phase": "eval_xmem", **layout, "size": 480, "config": "XMemConfig()",
+          "write_seconds": write_seconds, "runs": runs, "card_vs_cpu": holds,
+          "cpu_seconds": cpu_seconds,
+          "batched_vs_sequential": {vid: {"max_abs_err": max(r["max_abs_err"] for r in rows),
+                                          "min_label_agreement_off_near_ties": min(
+                                              r["label_agreement_off_near_ties"] for r in rows)}
+                                    for vid, rows in batch_holds.items()},
+          "prob_atol": XMEM_PROB_ATOL, "min_label_agreement": XMEM_MIN_AGREE,
+          "launches": counts})
+    return {k: sum(c[k] for c in counts.values()) for k in counts["sequential"]}
 
 
 def main() -> int:
@@ -1897,6 +2148,8 @@ def main() -> int:
     by_path["serving_step"], serving_ms = serving_step(dev)
     torch.cuda.empty_cache()
     by_path["recorded_scene"] = recorded_scene(dev, serving_ms)
+    torch.cuda.empty_cache()
+    by_path["eval_xmem"] = eval_xmem(dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

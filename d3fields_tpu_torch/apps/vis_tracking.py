@@ -6,7 +6,11 @@ the same flags. Per frame: Fusion.update + text queries (consensus on frame
 t=0 keypoints are farthest-point-sampled per instance and their
 descriptors recorded; every frame then solves a rigid SE(3) fit through the
 differentiable field (torch autograd, Adam) and writes
-``match_pts_<t>.pkl`` and ``loss_hist_<t>.pkl`` (``src_feats.pkl`` at t=0):
+``match_pts_<t>.pkl`` and ``loss_hist_<t>.pkl`` (``src_feats.pkl`` at t=0)
+and a frame of ``tracking.avi``, the keypoints reprojected into every view
+(``utils.visualization.TrackVis``; the JAX app writes ``tracking.mp4``, an
+mp4v video through OpenCV, and the port, with no video encoder, writes
+uncompressed AVI):
 
   python -m d3fields_tpu_torch.apps.vis_tracking --synthetic --frames 6 --out out/track
   python -m d3fields_tpu_torch.apps.vis_tracking --data_path data/<scene> \\
@@ -20,8 +24,7 @@ through ``serving.FusedFrameStep`` (DINOv2 -> XMem propagation -> field ->
 tracking); ``--segment N`` takes full chunks of N frames through
 ``step_segment`` and a shorter tail frame by frame. It needs the XMem
 tracker, so it is refused with ``--synthetic``, as in the JAX app. It runs
-on CUDA unless ``main`` is given another ``device``. Not ported yet: the
-reprojection-mosaic video ``tracking.mp4`` (``TrackVis``).
+on CUDA unless ``main`` is given another ``device``.
 """
 
 from __future__ import annotations
@@ -98,7 +101,7 @@ def main(argv=None, *, device=None):
     )
     from d3fields_tpu_torch.utils.device import resolve_device
     from d3fields_tpu_torch.utils.io import save_pickle
-    from d3fields_tpu_torch.utils.visualization import jet_colors
+    from d3fields_tpu_torch.utils.visualization import TrackVis, jet_colors
 
     if args.fused and args.synthetic:
         raise SystemExit(
@@ -152,13 +155,16 @@ def main(argv=None, *, device=None):
             return load_frame(args.data_path, t, args.num_cam)
 
     cfg = TrackingConfig(iters=args.iters)
-    src_feats = last_match = lo = hi = fused = None
+    src_feats = last_match = lo = hi = fused = vis = None
+    track_info = {}
 
     def consume(t, out):
-        # the host side of the pipeline: per-frame pickles (reference
-        # vis_tracking.py:136-138), `pipeline_depth` frames behind the device
+        # the host side of the pipeline: the video frame and per-frame
+        # pickles (reference vis_tracking.py:136-138), `pipeline_depth`
+        # frames behind the device
         match_pts = out["match_pts"]
         pts_list = [match_pts[i] for i in range(match_pts.shape[0])]
+        vis.visualize_match_pts(pts_list, out["color"], track_info)
         save_pickle(os.path.join(args.out, f"match_pts_{t:06d}.pkl"), pts_list)
         # per-iteration (feat, dist, reg, oob) losses: the numerics-sensitive
         # record of the whole differentiable pipeline
@@ -175,9 +181,10 @@ def main(argv=None, *, device=None):
         outs = fused.step_segment(np.stack([o["color"] for _, o, _ in seg_buf]), src_feats,
                                   last_match, depths=np.stack([o["depth"] for _, o, _ in seg_buf]))
         last_match = outs["match_pts"][-1]
-        for i, (ti, _, ti0) in enumerate(seg_buf):
+        for i, (ti, o, ti0) in enumerate(seg_buf):
             loop.submit(ti, {"match_pts": outs["match_pts"][i],
-                             "loss_history": outs["loss_history"][i], "t0": ti0})
+                             "loss_history": outs["loss_history"][i], "t0": ti0,
+                             "color": o["color"]})
         seg_buf.clear()
 
     def fused_step(t, obs, t0):
@@ -187,7 +194,7 @@ def main(argv=None, *, device=None):
         out = fused.step(obs["color"], src_feats, last_match, depth=obs["depth"])
         last_match = out["match_pts"]
         loop.submit(t, {"match_pts": last_match, "loss_history": out["loss_history"],
-                        "t0": t0})
+                        "t0": t0, "color": obs["color"]})
 
     for t in range(frames):
         t0 = time.perf_counter()
@@ -208,12 +215,12 @@ def main(argv=None, *, device=None):
                 fusion.state, fusion.consensus_mask_label, kypts_boundaries,
                 args.num_kypts, res=0.002, init_idx=0,
             )
-            track_info = {}
             for f, p, i in zip(feats, pts, inst_ids):
                 colors = (jet_colors(np.linspace(0, 1, p.shape[0])) * 255).astype(np.uint8)
                 track_info[f"inst_{i}"] = {"src_feats": f, "src_pts": p,
                                            "src_pts_color": colors}
             save_pickle(os.path.join(args.out, "src_feats.pkl"), track_info)
+            vis = TrackVis(obs["pose"], obs["K"], args.out)
             # the tracking chain's state stays on the device across frames
             src_feats, last_match = stack_keypoints(feats, pts, fusion.device)
             lo, hi = boundary_vectors(boundaries, fusion.device)
@@ -221,7 +228,8 @@ def main(argv=None, *, device=None):
         # FPS samples onto the field surface, vis_tracking.py:130-134)
         res = rigid_tracking_steps(fusion.state, src_feats, last_match, lo, hi, cfg)
         last_match = res["match_pts"]
-        loop.submit(t, {"match_pts": last_match, "loss_history": res["loss_history"], "t0": t0})
+        loop.submit(t, {"match_pts": last_match, "loss_history": res["loss_history"], "t0": t0,
+                        "color": obs["color"]})
         if args.fused and t == 0:
             # the seed frame went the staged way (detection seeds the
             # tracker); every later frame runs FusedFrameStep
@@ -250,7 +258,8 @@ def main(argv=None, *, device=None):
     for ti, o, ti0 in seg_buf:
         fused_step(ti, o, ti0)
     loop.flush()
-    print(f"[vis_tracking] wrote pickles to {args.out}")
+    vis.close()
+    print(f"[vis_tracking] wrote {args.out}/tracking.avi and the pickles")
     return 0
 
 

@@ -21,7 +21,6 @@ the denominator is the count of valid views, not the weight sum.
 
 from __future__ import annotations
 
-import random
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -31,6 +30,7 @@ from d3fields_tpu_torch.config import Boundaries, D3FieldsConfig
 from d3fields_tpu_torch.fields import geometry, kernels
 from d3fields_tpu_torch.fields.state import FieldState, state_from_obs
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.seeding import set_seed
 
 Tensor = torch.Tensor
 
@@ -193,11 +193,8 @@ class Fusion:
         self.device = resolve_device(device)
         self.config = config or D3FieldsConfig()
         if self.config.seed is not None:
-            # opt-in determinism of the host RNGs (reference set_seed,
-            # utils/my_utils.py:222)
-            random.seed(self.config.seed)
-            np.random.seed(self.config.seed)
-            torch.manual_seed(self.config.seed)
+            # opt-in determinism of the host RNGs
+            set_seed(self.config.seed)
         self.num_cam = num_cam
         self.feature_backend = feature_backend
         self.mask_backend = mask_backend
@@ -473,6 +470,17 @@ class Fusion:
         return self._keypoint_dict(*select_keypoints(
             self.state, self.consensus_mask_label, self.config.boundaries, N,
             per_instance=per_instance, init_idx=init_idx, pcd=pcd))
+
+    def select_features_rand_v2(self, boundaries, N, per_instance=False, num_per_cam=None):
+        """Depth-backprojection keypoint variant (``select_features_rand_v2``,
+        ``fusion.py:1543-1606``): ``num_per_cam`` per view, by default
+        ``N // num_cam``. ``boundaries`` is unused, as in the reference."""
+        from d3fields_tpu_torch.track.keypoints import select_keypoints_from_depth
+
+        self._require_state()
+        per_cam = num_per_cam or max(1, N // max(self.num_cam, 1))
+        return self._keypoint_dict(*select_keypoints_from_depth(
+            self.state, self.consensus_mask_label, per_cam, per_instance=per_instance))
 
     def rigid_tracking(self, src_feat_info, last_match_pts_list, boundaries, rand_ptcl_num):
         """Reference signature (``fusion.py:1608-1685``)."""

@@ -15,7 +15,11 @@ Counterpart of ``d3fields_tpu/models/resize.py``:
   detectors' and SAM's preprocessing.
 - :func:`bilinear_resize_exact` — the same without antialiasing on
   downscales (``F.interpolate``'s plain bilinear), for SAM's mask
-  postprocessing.
+  postprocessing; :func:`_linear_weights_1d` gives its two taps and
+  weights per output pixel, for reading an upsampled map at a few pixels;
+- :func:`linear_resize_u8` — OpenCV's default uint8 resize (``cv2.resize``,
+  INTER_LINEAR) in numpy, bit for bit: 11-bit fixed-point weights and
+  OpenCV's rounding shifts.
 """
 
 from __future__ import annotations
@@ -147,6 +151,17 @@ def bilinear_resize(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
+def _linear_weights_1d(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """2-tap half-pixel linear taps (out_size, 2) and float64 weights
+    without antialiasing (``F.interpolate(mode='bilinear',
+    align_corners=False)``)."""
+    src = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
+    base = np.floor(src).astype(np.int64)
+    t = src - base
+    taps = np.clip(np.stack([base, base + 1], axis=1), 0, in_size - 1)
+    return taps, np.stack([1.0 - t, t], axis=1)
+
+
 def bilinear_resize_exact(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Non-antialiased bilinear resize of (K, H, W, C), half-pixel centres:
     ``F.interpolate(mode='bilinear', align_corners=False, antialias=False)``
@@ -155,3 +170,36 @@ def bilinear_resize_exact(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.T
     out = F.interpolate(img.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
                         align_corners=False, antialias=False)
     return out.permute(0, 2, 3, 1)
+
+
+def _cv2_linear_taps(ssize: int, dsize: int, clamp: bool):
+    """OpenCV's INTER_LINEAR taps and 11-bit weights along one axis:
+    fx = float32((d + 0.5) * scale - 0.5), split at its floor. Along x an
+    out-of-range tap takes the edge pixel at weight 1 (``clamp``); along y
+    the weights stay and only the row indices are clipped."""
+    f = ((np.arange(dsize) + 0.5) * (1.0 / (dsize / ssize)) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= ssize - 1)
+        f[edge] = 0.0
+        s = np.clip(s, 0, ssize - 1)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    return np.clip(s, 0, ssize - 1), np.clip(s + 1, 0, ssize - 1), w0, w1
+
+
+def linear_resize_u8(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` of an (H, W) or (H, W, C) uint8 image:
+    each row's two taps in integers, then the two rows combined as OpenCV's
+    vector path does, ``((b0 (r0 >> 4)) >> 16 + (b1 (r1 >> 4)) >> 16 + 2) >> 2``."""
+    h, w = out_hw
+    x0, x1, a0, a1 = _cv2_linear_taps(img.shape[1], w, clamp=True)
+    y0, y1, b0, b1 = _cv2_linear_taps(img.shape[0], h, clamp=False)
+    s = img.astype(np.int64)
+    col = (1, w) + (1,) * (img.ndim - 2)
+    rows = s[:, x0] * a0.reshape(col) + s[:, x1] * a1.reshape(col)
+    row = (h,) + (1,) * (img.ndim - 1)
+    out = (((b0.reshape(row) * (rows[y0] >> 4)) >> 16)
+           + ((b1.reshape(row) * (rows[y1] >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -18,7 +18,7 @@ Deviations from the reference, as in the JAX package (documented bugfixes):
   Sub-threshold but nonzero overlaps merge into the best background match
   exactly like the reference.
 
-:func:`erode_mask` is the reference's 2x2 OpenCV erosion written in numpy.
+:func:`erode_mask` is the reference's OpenCV erosion (2x2 here) written in numpy.
 """
 
 from __future__ import annotations
@@ -95,19 +95,26 @@ def vox_idx_iou(a: np.ndarray, b: np.ndarray) -> Tuple[float, float, float]:
     return len(sa & sb) / union, len(sa) / union, len(sb) / union
 
 
-def erode_mask(mask: np.ndarray) -> np.ndarray:
-    """2x2 erosion applied before backprojection
-    (``extract_masked_pcd_in_views``, ``fusion.py:1295``).
+def erode_mask(mask: np.ndarray, size: int = 2) -> np.ndarray:
+    """OpenCV's erosion of ``(mask * 255).astype(np.uint8)`` by a ``size`` x
+    ``size`` kernel of ones, as a bool mask of what stays above 0.
 
-    The reference erodes ``(mask * 255).astype(np.uint8)`` with a 2x2 kernel
-    of ones in OpenCV and keeps what stays above 0. The kernel's anchor is
-    its (1, 1) element, so ``out[y, x] = min(m[y-1:y+1, x-1:x+1])``, and a
-    pixel outside the image counts as set (OpenCV's erosion border value
-    is +inf).
+    The reference erodes with a 2x2 kernel before backprojection
+    (``extract_masked_pcd_in_views``, ``fusion.py:1295``) and with a 15x15
+    one before depth keypoints (``select_features_rand_v2``). The anchor is
+    the kernel's (size // 2, size // 2) element, so ``out[y, x] =
+    min(m[y - a:y - a + size, x - a:x - a + size])`` with ``a = size // 2``,
+    and a pixel outside the image counts as set (OpenCV's erosion border
+    value is the type's maximum).
     """
     m = (np.asarray(mask) * 255).astype(np.uint8) > 0
-    p = np.pad(m, ((1, 0), (1, 0)), constant_values=True)
-    return p[:-1, :-1] & p[:-1, 1:] & p[1:, :-1] & p[1:, 1:]
+    a = size // 2
+    unset = np.pad(~m, ((a, size - 1 - a), (a, size - 1 - a)))
+    # windowed count of unset pixels through an integral image
+    c = np.pad(unset.astype(np.int32).cumsum(0).cumsum(1), ((1, 0), (1, 0)))
+    H, W = m.shape
+    win = c[size:size + H, size:size + W] - c[:H, size:size + W] - c[size:size + H, :W] + c[:H, :W]
+    return win == 0
 
 
 def masked_view_points(

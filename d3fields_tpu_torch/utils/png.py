@@ -10,6 +10,9 @@ give what ``cv2.imread`` gives:
 - :func:`imread_anydepth` is ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` of a
   greyscale file: (H, W) uint8 or uint16.
 
+An indexed-colour (paletted) file at 1, 2, 4 or 8 bits reads as its
+palette indices, (H, W) uint8, as ``np.array(Image.open(path))`` gives a
+P-mode file: the annotation masks of DAVIS and YouTube-VOS are stored so.
 Other colour types, bit depths and interlaced files raise ``ValueError``
 naming what the file holds. The row unfilter (PNG filter types 0-4) is
 ``native/png.cpp``, built with g++ on first use
@@ -17,7 +20,8 @@ naming what the file holds. The row unfilter (PNG filter types 0-4) is
 along each row that numpy cannot vectorise. There is no numpy fallback.
 
 :func:`save_png` writes uint8 BGR and uint16 greyscale images that
-``cv2.imread`` reads back unchanged. Each row takes the filter
+``cv2.imread`` reads back unchanged, and with ``palette=`` uint8 (H, W)
+index images as 8-bit indexed colour with a PLTE chunk. Each row takes the filter
 with the least sum of absolute residuals (libpng's heuristic), unless
 ``filter_type`` fixes one.
 """
@@ -34,10 +38,12 @@ import numpy as np
 from d3fields_tpu_torch.native_build import PORT_NATIVE_DIR, load_native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_EXTS = (".jpg", ".jpeg")
 COLOR_TYPES = {0: "greyscale", 2: "truecolour (RGB)", 3: "indexed colour",
                4: "greyscale with alpha", 6: "truecolour with alpha (RGBA)"}
 # the (colour type, bit depth) pairs read here -> samples per pixel
-_SUPPORTED = {(0, 8): 1, (0, 16): 1, (2, 8): 3, (6, 8): 4}
+_SUPPORTED = {(0, 8): 1, (0, 16): 1, (2, 8): 3, (6, 8): 4,
+              (3, 1): 1, (3, 2): 1, (3, 4): 1, (3, 8): 1}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -61,14 +67,23 @@ def unfilter(filtered: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """The samples of a PNG file as stored: (H, W) greyscale, (H, W, 3) RGB
-    or (H, W, 4) RGBA, uint8 or uint16."""
+def _unpack_indices(rows: np.ndarray, depth: int, W: int) -> np.ndarray:
+    """(H, stride) raw rows of 1-, 2- or 4-bit samples, most significant
+    first -> (H, W) uint8."""
+    bits = np.unpackbits(rows, axis=1)
+    groups = bits[:, : W * depth].reshape(rows.shape[0], W, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (groups * weights).sum(-1).astype(np.uint8)
+
+
+def _read_png(path: str):
+    """The samples of a PNG file as stored, and its palette ((n, 3) uint8
+    RGB, or None)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
+    pos, header, idat, palette = 8, None, [], None
     while pos + 12 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -78,6 +93,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -90,24 +107,36 @@ def read_png(path: str) -> np.ndarray:
     if (ctype, depth) not in _SUPPORTED:
         raise ValueError(
             f"{path}: PNG colour type {ctype} ({COLOR_TYPES.get(ctype, 'unknown')}) at bit "
-            f"depth {depth} is not supported (8-bit greyscale, RGB and RGBA, and 16-bit "
-            "greyscale are)")
+            f"depth {depth} is not supported (8-bit greyscale, RGB and RGBA, 16-bit "
+            "greyscale, and indexed colour at 1, 2, 4 and 8 bits are)")
     spp = _SUPPORTED[(ctype, depth)]
-    bpp = spp * depth // 8
+    stride = -(-W * spp * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != H * (1 + W * bpp):
-        raise ValueError(f"{path}: {raw.size} image bytes for {H} rows of {W * bpp} + 1")
-    rows = unfilter(raw.reshape(H, 1 + W * bpp), bpp)
-    if depth == 16:
+    if raw.size != H * (1 + stride):
+        raise ValueError(f"{path}: {raw.size} image bytes for {H} rows of {stride} + 1")
+    # sub-byte samples unfilter byte by byte (the PNG spec's bpp of 1)
+    rows = unfilter(raw.reshape(H, 1 + stride), max(1, spp * depth // 8))
+    if depth < 8:
+        img = _unpack_indices(rows, depth, W)[..., None]
+    elif depth == 16:
         img = rows.view(">u2").astype(np.uint16).reshape(H, W, spp)
     else:
         img = rows.reshape(H, W, spp)
-    return img[..., 0] if spp == 1 else img
+    return (img[..., 0] if spp == 1 else img), palette
+
+
+def read_png(path: str) -> np.ndarray:
+    """The samples of a PNG file as stored: (H, W) greyscale or palette
+    indices, (H, W, 3) RGB or (H, W, 4) RGBA, uint8 or uint16."""
+    return _read_png(path)[0]
 
 
 def imread_color(path: str) -> np.ndarray:
-    """``cv2.imread(path)`` of an 8-bit PNG: BGR uint8 (H, W, 3)."""
-    img = read_png(path)
+    """``cv2.imread(path)`` of an 8-bit PNG: BGR uint8 (H, W, 3). A
+    paletted file gives its palette's colours."""
+    img, palette = _read_png(path)
+    if palette is not None:
+        return np.ascontiguousarray(palette[img][..., ::-1])
     if img.dtype != np.uint8:
         raise ValueError(f"{path}: a 16-bit PNG is not read as a colour image here")
     if img.ndim == 2:
@@ -118,10 +147,20 @@ def imread_color(path: str) -> np.ndarray:
 def imread_anydepth(path: str) -> np.ndarray:
     """``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` of a greyscale PNG: (H, W)
     uint8 or uint16."""
-    img = read_png(path)
-    if img.ndim != 2:
+    img, palette = _read_png(path)
+    if img.ndim != 2 or palette is not None:
         raise ValueError(f"{path}: a colour PNG is not read as a depth image here")
     return img
+
+
+def refuse_jpeg(path: str) -> None:
+    """Raise ``NotImplementedError`` for a JPEG file: the port reads PNG
+    only, and has no JPEG decoder yet (ROADMAP.md, Queue 1 item 11)."""
+    if path.lower().endswith(JPEG_EXTS):
+        raise NotImplementedError(
+            f"{path}: JPEG frames are not read by d3fields_tpu_torch yet: it has no JPEG "
+            "decoder without OpenCV or Pillow (ROADMAP.md, Queue 1 item 11, the baseline JPEG "
+            "decoder). Convert the frames to PNG.")
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -158,12 +197,27 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def save_png(path: str, image: np.ndarray, filter_type: Optional[int] = None) -> None:
+def save_png(path: str, image: np.ndarray, filter_type: Optional[int] = None,
+             palette: Optional[np.ndarray] = None) -> None:
     """Write uint8 BGR (H, W, 3) or uint16 (H, W) greyscale as a PNG that
-    ``cv2.imread`` reads back to ``image``. ``filter_type`` 0-4 fixes every
-    row's filter; None picks one per row."""
+    ``cv2.imread`` reads back to ``image``; with ``palette`` ((n, 3) uint8
+    RGB, n <= 256), uint8 (H, W) indices as 8-bit indexed colour.
+    ``filter_type`` 0-4 fixes every row's filter; None picks one per row."""
     image = np.asarray(image)
-    if image.dtype == np.uint8 and image.ndim == 3 and image.shape[2] == 3:
+    chunks = []
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        if image.dtype != np.uint8 or image.ndim != 2:
+            raise ValueError(f"a paletted PNG holds uint8 (H, W) indices, got {image.dtype} "
+                             f"{image.shape}")
+        if palette.ndim != 2 or palette.shape[1] != 3 or not 1 <= palette.shape[0] <= 256:
+            raise ValueError(f"palette must be (n <= 256, 3) RGB, got {palette.shape}")
+        if image.size and int(image.max()) >= palette.shape[0]:
+            raise ValueError(f"index {int(image.max())} lies past the {palette.shape[0]}-entry "
+                             "palette")
+        ctype, depth, samples = 3, 8, image
+        chunks.append(_chunk(b"PLTE", palette.tobytes()))
+    elif image.dtype == np.uint8 and image.ndim == 3 and image.shape[2] == 3:
         ctype, depth, samples = 2, 8, image[..., ::-1]  # BGR -> the file's RGB
     elif image.dtype == np.uint16 and image.ndim == 2:
         ctype, depth, samples = 0, 16, image.astype(">u2")
@@ -177,5 +231,7 @@ def save_png(path: str, image: np.ndarray, filter_type: Optional[int] = None) ->
     with open(path, "wb") as f:
         f.write(SIGNATURE)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, 0)))
+        for c in chunks:
+            f.write(c)
         f.write(_chunk(b"IDAT", body))
         f.write(_chunk(b"IEND", b""))

@@ -389,3 +389,80 @@ def test_apps_run_on_cuda_unless_asked(tmp_path):
         vis_repr.main(VIS_REPR_ARGS + ["--out", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         vis_tracking.main(VIS_TRACKING_FAST_ARGS + ["--out", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# the apps' remaining host side: the tracking video and precompute_pca
+# ---------------------------------------------------------------------------
+
+
+def test_vis_tracking_writes_the_tracking_video(tmp_path, monkeypatch):
+    """tracking.avi holds one frame per tracked frame, and frame t is the
+    TrackVis mosaic of match_pts_<t>.pkl on frame t's colours (keypoints
+    from a 1 cm grid here, where the app's 2 mm grid takes ~10 s)."""
+    from d3fields_tpu_torch.track import keypoints as tkp
+    from d3fields_tpu_torch.utils.avi import read_avi
+    from d3fields_tpu_torch.utils.visualization import TrackVis
+
+    select = tkp.select_keypoints
+    monkeypatch.setattr(tkp, "select_keypoints",
+                        lambda *a, **k: select(*a, **dict(k, res=0.01)))
+    out = str(tmp_path / "track")
+    assert vis_tracking.main(["--synthetic", "--frames", "3", "--num_kypts", "8",
+                              "--iters", "5", "--out", out, "--pipeline_depth", "1"],
+                             device="cpu") == 0
+    video = read_avi(os.path.join(out, "tracking.avi"))
+    assert video.shape == (3, 2 * 84, 2 * 112, 3)
+    with open(os.path.join(out, "src_feats.pkl"), "rb") as f:
+        info = pickle.load(f)
+    frame0 = vis_tracking.synthetic_frame(0)
+    vis = TrackVis(frame0["pose"], frame0["K"], str(tmp_path / "again"))
+    for t in range(3):
+        with open(os.path.join(out, f"match_pts_{t:06d}.pkl"), "rb") as f:
+            pts = pickle.load(f)
+        mosaic = vis.visualize_match_pts(pts, vis_tracking.synthetic_frame(t)["color"], info)
+        np.testing.assert_array_equal(video[t], mosaic, err_msg=f"frame {t}")
+    vis.close()
+
+
+def test_precompute_pca_synthetic_matches_jax(tmp_path):
+    from d3fields_tpu.apps import precompute_pca as jpca
+    from d3fields_tpu.ops.pca import PCAParams as JPCAParams
+    from d3fields_tpu_torch.apps import precompute_pca as tpca
+    from d3fields_tpu_torch.ops.pca import PCAParams
+
+    assert jpca.main(["--synthetic", "--out", str(tmp_path / "j.pkl")]) == 0
+    assert tpca.main(["--synthetic", "--out", str(tmp_path / "t.pkl")], device="cpu") == 0
+    got, want = PCAParams.load(str(tmp_path / "t.pkl")), JPCAParams.load(str(tmp_path / "j.pkl"))
+    assert got.components.shape == (3, 64)
+    np.testing.assert_allclose(got.components, want.components, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.mean, want.mean, rtol=1e-6, atol=1e-6)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tpca.main(["--synthetic", "--out", str(tmp_path / "c.pkl")])
+
+
+def test_precompute_pca_images_matches_jax(tmp_path, recorded_env):
+    """--images on two of the recorded colour PNGs with the tiny DINOv2
+    checkpoint, against the JAX app's steps (cv2.imread, cv2.resize, its
+    backbone at float32, fit_fg_pca: its main reshapes to 1,024 channels,
+    which the tiny model has not); a JPEG input is refused."""
+    import cv2
+
+    from d3fields_tpu.apps import precompute_pca as jpca
+    from d3fields_tpu_torch.apps import precompute_pca as tpca
+    from d3fields_tpu_torch.ops.pca import PCAParams
+
+    images = [os.path.join(recorded_env["scene"], f"camera_{v}", "color", "0.png") for v in (0, 2)]
+    ph, pw = 4, 5
+    assert tpca.main(["--images", *images, "--patch_h", str(ph), "--patch_w", str(pw),
+                      "--out", str(tmp_path / "t.pkl")], device="cpu") == 0
+    got = PCAParams.load(str(tmp_path / "t.pkl"))
+    imgs = np.stack([cv2.resize(cv2.imread(p), (14 * pw, 14 * ph)) for p in images])
+    feats = np.asarray(JB.build_feature_backend()(imgs, patch_hw=(ph, pw)))
+    want = jpca.fit_fg_pca(feats.reshape(-1, feats.shape[-1]), -15.0)
+    np.testing.assert_allclose(got.mean, want.mean, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.components, want.components, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.components @ got.components.T, np.eye(3), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="JPEG"):
+        tpca.main(["--images", "a.jpg", "--out", str(tmp_path / "x.pkl")], device="cpu")

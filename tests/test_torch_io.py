@@ -149,7 +149,8 @@ def test_reader_refuses_what_it_does_not_read(tmp_path):
     _raw_png(p, 1, 1, 8, 2, interlace=1, data=b"\0\1\2\3")
     with pytest.raises(ValueError, match="interlaced"):
         png.read_png(p)
-    for depth, ctype, name in ((8, 3, "indexed colour"), (8, 4, "greyscale with alpha"),
+    # indexed colour reads at 1, 2, 4 and 8 bits; the spec allows no 16-bit palette
+    for depth, ctype, name in ((16, 3, "indexed colour"), (8, 4, "greyscale with alpha"),
                                (16, 2, "truecolour"), (4, 0, "greyscale")):
         _raw_png(p, 1, 1, depth, ctype)
         with pytest.raises(ValueError, match=f"colour type {ctype} \\({name}.* bit depth {depth}"):
@@ -203,3 +204,54 @@ def test_load_frame_equals_jax(tmp_path):
     os.remove(os.path.join(root, "camera_2", "depth", "1.png"))
     with pytest.raises(FileNotFoundError, match=r"camera_2/depth/1\.png"):
         tio.load_frame(root, 1, 4)
+
+
+@pytest.mark.parametrize("colors,bits", [(2, 1), (4, 2), (16, 4), (256, 8)])
+@pytest.mark.parametrize("W", [1, 7, 33])
+def test_paletted_png_reads_its_indices(tmp_path, colors, bits, W):
+    """Paletted files that Pillow writes at 1, 2, 4 and 8 bits (from the
+    palette's size): read_png gives np.array(Image.open(p)), the indices;
+    imread_color the palette's colours as cv2.imread does."""
+    from PIL import Image
+
+    rs = np.random.RandomState(colors + W)
+    m = rs.randint(0, colors, (9, W)).astype(np.uint8)
+    p = str(tmp_path / "p.png")
+    img = Image.fromarray(m, mode="P")
+    img.putpalette(rs.randint(0, 256, 3 * colors).tolist())
+    img.save(p)
+    with open(p, "rb") as f:
+        assert f.read()[24] == bits  # IHDR's bit depth
+    np.testing.assert_array_equal(png.read_png(p), np.array(Image.open(p)))
+    np.testing.assert_array_equal(png.imread_color(p), cv2.imread(p))
+
+
+def test_paletted_png_round_trip_and_index_masks(tmp_path):
+    """save_png(palette=) writes a P file Pillow reads back with its palette;
+    the port's load_index_mask equals the JAX one on paletted, greyscale and
+    RGB masks; a JPEG path is refused, naming the gap."""
+    from PIL import Image
+
+    from d3fields_tpu.models.xmem.data import load_index_mask as jload
+    from d3fields_tpu_torch.models.xmem.data import load_index_mask as tload
+
+    rs = np.random.RandomState(3)
+    m = rs.randint(0, 5, (13, 17)).astype(np.uint8)
+    pal = rs.randint(0, 256, (5, 3)).astype(np.uint8)
+    p = str(tmp_path / "m.png")
+    png.save_png(p, m, palette=pal)
+    img = Image.open(p)
+    assert img.mode == "P"
+    np.testing.assert_array_equal(np.array(img), m)
+    np.testing.assert_array_equal(np.array(img.getpalette(), np.uint8).reshape(-1, 3)[:5], pal)
+    np.testing.assert_array_equal(tload(p), jload(p))
+    g, c = str(tmp_path / "g.png"), str(tmp_path / "c.png")
+    cv2.imwrite(g, m)
+    cv2.imwrite(c, np.stack([m, m + 1, m + 2], -1))
+    for q in (g, c):
+        np.testing.assert_array_equal(tload(q), jload(q))
+    with pytest.raises(ValueError, match="past the 5-entry palette"):
+        png.save_png(p, m + 1, palette=pal)
+    with pytest.raises(NotImplementedError, match="JPEG.*item 11"):
+        png.refuse_jpeg("frames/00000.JPG")
+    png.refuse_jpeg("frames/00000.png")

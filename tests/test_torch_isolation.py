@@ -45,7 +45,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     n, bad = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 55, r.stdout
+    assert int(n) >= 65, r.stdout
     assert bad == "[]", bad
 
 

@@ -296,3 +296,90 @@ def test_async_frame_loop_error_semantics():
     with AsyncFrameLoop(lambda fid, out: seen2.append(fid), depth=8) as lp:
         lp.submit(0, torch.zeros(1))
     assert seen2 == [0]
+
+
+def _depth_keypoint_states():
+    """tests/test_tracking.py:141-163's case: the sphere as instance 1 and
+    a strip of a few pixels in view 0 as instance 2 (the padding paths),
+    as JAX and port states."""
+    from test_tracking import make_frame
+
+    f0, _ = make_frame(np.array([-0.05, 0.0, 0.06]), [0, 0, 0])
+    V, H, W = f0["depth"].shape
+    onehot = np.zeros((V, H, W, 3), np.float32)
+    onehot[..., 1] = f0["sphere_masks"][:, 0]
+    onehot[0, 2:6, 2:40, 2] = 1.0
+    onehot[..., 0] = 1.0 - onehot[..., 1:].sum(-1).clip(0, 1)
+    kw = dict(dino_feats=f0["dino_feats"], mask=onehot, mu=0.02)
+    return jstate_from_obs(f0, **kw), tstate_from_obs(f0, **kw, device="cpu")
+
+
+@pytest.mark.parametrize("erode_px,per_instance", [(1, True), (15, True), (15, False)])
+def test_select_keypoints_from_depth_matches_jax(erode_px, per_instance):
+    """Points identical, descriptors at rtol 1e-5 / atol 1e-6, every
+    instance V * num_per_cam points."""
+    js, ts = _depth_keypoint_states()
+    labels = ["background", "ball", "ball" if not per_instance else "cube"]
+    jf, jp, ji = jkp.select_keypoints_from_depth(js, labels, 8, erode_px=erode_px,
+                                                 per_instance=per_instance)
+    tf, tp, ti = tkp.select_keypoints_from_depth(ts, labels, 8, erode_px=erode_px,
+                                                 per_instance=per_instance)
+    assert ti == ji and len(ti) >= 1
+    for a, b, fa, fb in zip(tp, jp, tf, jf):
+        assert a.shape == (4 * 8, 3) and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(fa, np.asarray(fb), rtol=1e-5, atol=1e-6)
+
+
+def test_erosion_15x15_equals_cv2_erode():
+    """The numpy erosion against cv2.erode on random masks that touch the
+    border: outside the image never erodes a mask."""
+    import cv2
+
+    from d3fields_tpu_torch.seg.instances import erode_mask
+
+    rs = np.random.RandomState(0)
+    for size in (15, 2, 3, 4):
+        for _ in range(6):
+            m = rs.rand(40, 57) < rs.uniform(0.6, 0.995)
+            m[:, :9] = True
+            m[-8:] = True
+            m[rs.randint(40), rs.randint(57)] = False
+            want = cv2.erode((m * 255).astype(np.uint8), np.ones((size, size), np.uint8),
+                             iterations=1) > 0
+            np.testing.assert_array_equal(erode_mask(m, size), want, err_msg=f"{size}")
+
+
+def test_select_src_feats_at_pixels_matches_jax():
+    rs = np.random.RandomState(0)
+    fm = rs.randn(6, 8, 5).astype(np.float32)
+    pixels = np.stack([rs.randint(0, 80, 40), rs.randint(0, 60, 40)], axis=1)
+    np.testing.assert_allclose(tkp.select_src_feats_at_pixels(fm, pixels, (60, 80)),
+                               jkp.select_src_feats_at_pixels(fm, pixels, (60, 80)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_fusion_select_features_rand_v2_matches_jax():
+    """The facade's depth keypoints (tests/test_fusion.py:201-224's case)."""
+    from conftest import synthetic_scene
+
+    from d3fields_tpu.fields.fusion import Fusion as JFusion
+    from d3fields_tpu_torch.fields.fusion import Fusion as TFusion
+
+    sc = synthetic_scene(num_views=4, H=128, W=160, ground=True, focal=240.0)
+    sphere = sc["sphere_masks"][:, 0]
+    obs = {**{k: sc[k] for k in ("color", "depth", "pose", "K")}, "dino_feats": sc["dino_feats"],
+           "mask": np.stack([~sphere, sphere], axis=-1).astype(np.float32)}
+    infos = []
+    for fus in (JFusion(), TFusion(device="cpu")):
+        fus.update(obs)
+        fus.consensus_mask_label = ["background", "a"]
+        infos.append(fus.select_features_rand_v2(None, 12, per_instance=True))
+    jinfo, tinfo = infos
+    assert tinfo.keys() == jinfo.keys() == {"a_1"}
+    assert tinfo["a_1"]["src_pts"].shape == (12, 3)
+    np.testing.assert_array_equal(tinfo["a_1"]["src_pts"], jinfo["a_1"]["src_pts"])
+    # select_keypoints' descriptor tolerance: 32-channel random maps fused
+    # over four views in float32
+    np.testing.assert_allclose(tinfo["a_1"]["src_feats"], np.asarray(jinfo["a_1"]["src_feats"]),
+                               rtol=1e-5, atol=1e-5)
