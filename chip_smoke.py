@@ -52,7 +52,16 @@ seeded generators:
    three 480x854 (DAVIS 480p) videos of 24 PNG frames with paletted
    annotations, one of them with an object entering on frame 3:
    sequential, ``--video_batch 2`` and ``--flip``, then ``merge_scores``;
-   held to the port's CPU run and batched to sequential.
+   held to the port's CPU run and batched to sequential;
+11. ``train_xmem``: XMem training (``models/xmem/trainer.py``). The loss
+   and every leaf's gradient of a small model's rollout on the card are
+   held to the CPU's; then ``apps/train_xmem.py`` trains a full-width
+   ``XMemConfig()`` at the reference's 384x384 crop with stage 3's clip
+   shape (8 frames, 3 reference frames, 3 objects, batch 2) on 480x854 PNG
+   videos for 4 steps and a ``--resume`` of 1 more, and ``eval_xmem
+   --ckpt`` reads its checkpoint; the committed JPEG fixtures are decoded
+   and held to their recorded ``cv2.imread`` SHA-256, and a stage-0 run
+   trains on them (``--static_root``).
 
 The ``tracking`` phase and the recorded tracking runs also write
 ``tracking.avi`` (the ``TrackVis`` mosaics, uncompressed AVI) in the app's
@@ -61,9 +70,9 @@ from the saved match points.
 
 Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
-kernels (the tracking, XMem and serving-step paths have none: the
-tracking loss differentiates the unfused field query, as in the JAX
-package, and XMem runs no TPU kernel there either). After the counted
+kernels (the tracking, XMem, serving-step, evaluation and training paths
+have none: the tracking loss differentiates the unfused field query, as in
+the JAX package, and XMem runs no TPU kernel there either). After the counted
 requests, one more request of each path is traced with torch.profiler for the device time by
 kernel and the device's idle share (traces under build/traces/), and each
 kernel is held and timed on the inputs a request gives it: one field-query
@@ -2104,6 +2113,258 @@ def eval_xmem(dev) -> dict:
     return {k: sum(c[k] for c in counts.values()) for k in counts["sequential"]}
 
 
+TRAIN_DIR = os.path.join(OUT, "train_xmem")
+TRAIN_HW = (384, 384)        # the reference's training crop (XMem/dataset/vos_dataset.py)
+TRAIN_STEPS = 4              # then a --resume for one more
+TRAIN_WIDTH_ARGS = []        # XMemConfig()'s widths, the app's defaults
+TRAIN_HOLD = dict(key_dim=16, value_dim=32, hidden_dim=8)  # tests/test_parallel_train.py:62
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_MIN_COS = 1e-5, 1e-4, 0.9999
+# A leaf whose gradient norm is below this share of the whole gradient's is
+# rounding noise around a true zero (key_proj's bias: one shift of every
+# key leaves the L2 similarity as it was; 1.4e-14 of the norm on the CPU,
+# where one thread against eight gives it a cosine of -0.31). Its cosine
+# is not held; the global error holds it.
+TRAIN_GRAD_NOISE_SHARE = 1e-10
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "torch_jpeg")
+
+
+def rollout_grads(model, batch, rollout, dev) -> tuple:
+    """The mean rollout loss of ``batch`` (numpy) on ``dev`` and every
+    trainable leaf's gradient, as numpy."""
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+
+    leaves = TR.train_leaves(model)
+    loss = TR.sequence_loss(model, TR.to_device_batch(batch, dev), 0, rollout=rollout)[0].mean()
+    loss.backward()
+    return float(loss.detach()), {n: (torch.zeros_like(t) if t.grad is None else t.grad).cpu()
+                                  .numpy().astype(np.float64) for n, t in leaves}
+
+
+def hold_train_grads(dev) -> dict:
+    """A small model's rollout loss and gradients on the card against the
+    CPU: same weights (PyTorch's default conv scale, ``xmem_model``: the
+    He-normal ``init_params`` makes the rollout amplify rounding ~100x),
+    the same batch (B=2, T=3, 2 objects, 32x32) and deep-update coins."""
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+    from d3fields_tpu_torch.models.xmem.network import XMem
+
+    cfg = XMemConfig(**TRAIN_HOLD)
+    rs = np.random.RandomState(0)
+    nb, T, O, H, W = 2, 3, 2, 32, 32
+    batch = {"frames": rs.rand(nb, T, H, W, 3).astype(np.float32),
+             "first_gt": (rs.rand(nb, O, H, W) > 0.5).astype(np.float32),
+             "cls_gt": rs.randint(0, O + 1, (nb, T, H, W)),
+             "selector": np.ones((nb, O), np.float32)}
+    # seed 1 draws both values of frame 1's coin (frames 0 and T-1 are not
+    # read), so both branches of the deep update are held
+    rollout = TR.draw_rollout(torch.Generator().manual_seed(1), nb, T, 0)
+    read = rollout.deep_update[:, 1:T - 1]
+    check(bool(read.any()) and not bool(read.all()),
+          f"train_xmem coins take one branch only: {rollout.deep_update.tolist()}")
+    cpu = xmem_model(torch.device("cpu"), cfg, seed=7)
+    card = XMem(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    cpu_loss, cpu_grads = rollout_grads(cpu, batch, rollout, torch.device("cpu"))
+    card_loss, card_grads = rollout_grads(card.eval(), batch, rollout, dev)
+    names = sorted(cpu_grads)
+    g = np.concatenate([card_grads[k].ravel() for k in names])
+    r = np.concatenate([cpu_grads[k].ravel() for k in names])
+    cos, noise = {}, {}
+    for k in names:
+        a, b = card_grads[k].ravel(), cpu_grads[k].ravel()
+        na, nb_ = np.linalg.norm(a), np.linalg.norm(b)
+        if nb_ < TRAIN_GRAD_NOISE_SHARE * np.linalg.norm(r):
+            noise[k] = {"cpu_norm_share": float(nb_ / np.linalg.norm(r)),
+                        "card_norm_share": float(na / np.linalg.norm(r))}
+            continue
+        cos[k] = float(a @ b / (na * nb_))
+    row = {"loss_card": card_loss, "loss_cpu": cpu_loss,
+           "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+           "grad_global_rel_err": float(np.linalg.norm(g - r) / np.linalg.norm(r)),
+           "grad_min_cos": min(cos.values()), "grad_min_cos_leaf": min(cos, key=cos.get),
+           "leaves": len(names), "leaves_at_rounding_noise": noise,
+           "deep_update_coins": rollout.deep_update.tolist()}
+    check(row["loss_rel_err"] <= TRAIN_LOSS_RTOL, f"train_xmem loss card vs CPU: {row}")
+    check(row["grad_global_rel_err"] <= TRAIN_GRAD_RTOL, f"train_xmem grads card vs CPU: {row}")
+    check(row["grad_min_cos"] >= TRAIN_GRAD_MIN_COS, f"train_xmem grad cosine: {row}")
+    return row
+
+
+def train_losses(out: str) -> list:
+    with open(os.path.join(out, "train.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    return [r["loss"] for r in rows if r.get("prefix") == "train"]
+
+
+@contextlib.contextmanager
+def timed_training(times: dict):
+    """Time every ``trainer.train_step`` between synchronisations (the app
+    otherwise reads the loss late and overlaps steps with the next batch's
+    loading) and every clip loader's ``batch`` on the host clock."""
+    from d3fields_tpu_torch.models.xmem import data as D
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+
+    step, batch = TR.train_step, D.VideoClipLoader.batch
+
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        times["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_batch(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = batch(self, *args, **kwargs)
+        times["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    TR.train_step, D.VideoClipLoader.batch = timed_step, timed_batch
+    try:
+        yield
+    finally:
+        TR.train_step, D.VideoClipLoader.batch = step, batch
+
+
+def train_static(dev) -> tuple:
+    """Every committed JPEG fixture against its recorded SHA-256, then
+    stage 0 (``--static_root``) on the fixtures with saliency masks written
+    as PNG: 2 steps, batch 4, 3 frames at TRAIN_HW."""
+    import hashlib
+    import shutil
+
+    from d3fields_tpu_torch.apps import train_xmem as app
+    from d3fields_tpu_torch.utils.png import imread_color, save_png
+
+    with open(os.path.join(JPEG_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    root = os.path.join(TRAIN_DIR, "static")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    for name, want in expected.items():
+        img = imread_color(os.path.join(JPEG_FIXTURES, name))
+        check(list(img.shape) == want["shape"], f"JPEG {name}: shape {img.shape}")
+        check(hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"],
+              f"JPEG {name}: not the bytes cv2.imread gives")
+        shutil.copy(os.path.join(JPEG_FIXTURES, name), os.path.join(root, name))
+        grey = img.astype(np.int64).sum(-1)
+        mask = np.where(grey > np.median(grey), 255, 0).astype(np.uint8)
+        save_png(os.path.join(root, name[:-4] + ".png"), np.repeat(mask[..., None], 3, axis=2))
+    decode_seconds = time.perf_counter() - t0
+    out = os.path.join(TRAIN_DIR, "stage0")
+    times = {"step_ms": [], "batch_ms": []}
+    argv = ["--stage", "0", "--static_root", root, "--steps", "2", "--batch", "4",
+            "--num_frames", "3", "--size", *map(str, TRAIN_HW), *TRAIN_WIDTH_ARGS,
+            "--save_every", "100", "--log_every", "1", "--out", out]
+    with timed_training(times):
+        code, counts = reset_and_count(lambda: app.main(argv, device=dev))
+    check(code == 0, "train_xmem --stage 0 exited with an error")
+    losses = train_losses(out)
+    check(len(losses) == 2 and np.isfinite(losses).all(), f"stage 0 losses {losses}")
+    return {"fixtures": sorted(expected), "decode_and_write_seconds": decode_seconds,
+            "stage0": {"losses": losses, **times}}, counts
+
+
+def profile_train_step(dev, argv, ckpt: str) -> None:
+    """Device time by kernel and idle share of a full-width training step
+    from ``ckpt``, on a batch of the app's loader (``profile_stage``)."""
+    from d3fields_tpu_torch.apps import train_xmem as app
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+
+    args = app.resolve_stage_args(app.build_parser().parse_args(argv + ["--steps", "1"]))
+    loader, _ = app.make_loader(args)
+    cfg = XMemConfig(key_dim=args.key_dim, value_dim=args.value_dim, hidden_dim=args.hidden_dim)
+    state = TR.load_checkpoint(ckpt, cfg, TR.make_optimizer(), dev)
+    batch = TR.to_device_batch(loader.batch(args.batch), dev)
+    profile_stage("train_step", lambda: TR.train_step(
+        state, batch, num_ref_frames=args.num_ref_frames, start_warm=args.start_warm,
+        end_warm=args.end_warm))
+
+
+def train_xmem(dev) -> dict:
+    """Phase ``train_xmem``: gradients card vs CPU, full-width training with
+    a resume and the checkpoint's evaluation, the JPEG fixtures and a
+    stage-0 run."""
+    import shutil
+
+    from d3fields_tpu_torch.apps import eval_xmem as eval_app
+    from d3fields_tpu_torch.apps import train_xmem as app
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    hold = hold_train_grads(dev)
+    hold["seconds"] = time.perf_counter() - t0
+    data = os.path.join(TRAIN_DIR, "data")
+    t0 = time.perf_counter()
+    layout = write_eval_videos(data)
+    write_seconds = time.perf_counter() - t0
+    out = os.path.join(TRAIN_DIR, "run")
+    argv = ["--data_root", data, "--num_frames", "8", "--num_ref_frames", "3",
+            "--max_num_obj", "3", "--batch", "2", "--size", *map(str, TRAIN_HW),
+            *TRAIN_WIDTH_ARGS, "--save_every", str(TRAIN_STEPS), "--log_every", "1",
+            "--out", out]
+    times = {"step_ms": [], "batch_ms": []}
+    counts = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_training(times):
+        code, counts["train"] = reset_and_count(
+            lambda: app.main(argv + ["--steps", str(TRAIN_STEPS)], device=dev))
+    train_seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(code == 0, "train_xmem exited with an error")
+    ckpt = os.path.join(out, f"ckpt_{TRAIN_STEPS}.pt")
+    check(os.path.exists(ckpt), f"no {ckpt}")
+    resume = {"step_ms": [], "batch_ms": []}
+    with timed_training(resume):
+        code, counts["resume"] = reset_and_count(
+            lambda: app.main(argv + ["--steps", str(TRAIN_STEPS + 1), "--resume", ckpt],
+                             device=dev))
+    check(code == 0, "train_xmem --resume exited with an error")
+    final = os.path.join(out, "ckpt_final.pt")
+    check(torch.load(final, weights_only=True)["it"] == TRAIN_STEPS + 1,
+          "the resumed run did not end at its step budget")
+    losses = train_losses(out)
+    check(len(losses) == TRAIN_STEPS + 1 and np.isfinite(losses).all(), f"losses {losses}")
+    ev = os.path.join(TRAIN_DIR, "eval")
+    code, counts["eval"] = reset_and_count(lambda: eval_app.main(
+        ["--data_root", data, "--frames", "4", "--size", "480", "--ckpt", final,
+         *TRAIN_WIDTH_ARGS, "--out", ev], device=dev))
+    check(code == 0, "eval_xmem --ckpt on the trained checkpoint exited with an error")
+    with open(os.path.join(ev, "metrics.json")) as f:
+        g = json.load(f)["global"]
+    check(all(0.0 <= g[k] <= 1.0 for k in ("J", "F", "JF")), f"eval of the checkpoint: {g}")
+    profile_train_step(dev, argv, final)
+    shutil.rmtree(data, ignore_errors=True)
+    torch.cuda.empty_cache()
+    jpeg, counts["stage0"] = train_static(dev)
+    for k in ("step_ms", "batch_ms"):
+        jpeg["stage0"][k + "_median"] = float(np.median(jpeg["stage0"][k]))
+    emit({"phase": "train_xmem", "card_vs_cpu": hold,
+          "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+          "grad_min_cos": TRAIN_GRAD_MIN_COS, "grad_noise_share": TRAIN_GRAD_NOISE_SHARE,
+          "full_width": {"config": "XMemConfig()", "crop": list(TRAIN_HW), "num_frames": 8,
+                         "num_ref_frames": 3, "max_num_obj": 3, "batch": 2,
+                         "videos": layout["videos"], "video_hw": layout["image_hw"],
+                         "write_seconds": write_seconds, "losses": losses,
+                         "step_ms": times["step_ms"],
+                         "step_ms_median_2_4": float(np.median(times["step_ms"][1:4])),
+                         "resume_step_ms": resume["step_ms"],
+                         "batch_ms": times["batch_ms"] + resume["batch_ms"],
+                         "batch_ms_median": float(np.median(times["batch_ms"])),
+                         "max_memory_allocated_gib": peak / 2**30,
+                         "train_seconds": train_seconds},
+          "eval_of_checkpoint": {"J": g["J"], "F": g["F"], "fps": g["fps"]},
+          "jpeg": jpeg, "launches": counts})
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)  # checkpoints of 0.3 GB each
+    return {k: sum(c[k] for c in counts.values()) for k in counts["train"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on the GPU only",
@@ -2129,27 +2390,49 @@ def main() -> int:
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                     for k, v in _build.build_log.items()}})
 
+    wall, t_lap = {"build": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Record the wall seconds of the phase that just ended."""
+        now = time.perf_counter()
+        wall[name], t_lap[0] = now - t_lap[0], now
+
     rows = [check_fused_weighted_interp(dev), check_deform_gather(dev)]
+    lap("kernel_check")
     by_path = {}
     by_path["serve"] = {"fused_weighted_interp": 0, "deform_gather": 0}
     by_path["serve"]["fused_weighted_interp"], backbone = serve(dev)
     torch.cuda.empty_cache()
+    lap("serve")
     by_path["segment"] = {"fused_weighted_interp": 0, "deform_gather": 0}
     by_path["segment"]["deform_gather"], seg_backend = segment(dev)
+    lap("segment")
     by_path["golden"] = golden(dev)
+    lap("golden")
     by_path["vis_repr"] = vis_repr_full(dev)
+    lap("vis_repr")
     by_path["vis_repr_backends"] = vis_repr_backends(dev, backbone, seg_backend)
     del backbone, seg_backend
     torch.cuda.empty_cache()
+    lap("vis_repr_backends")
     by_path["tracking"] = tracking(dev)
     torch.cuda.empty_cache()
+    lap("tracking")
     by_path["xmem"] = xmem_phase(dev)
     torch.cuda.empty_cache()
+    lap("xmem")
     by_path["serving_step"], serving_ms = serving_step(dev)
     torch.cuda.empty_cache()
+    lap("serving_step")
     by_path["recorded_scene"] = recorded_scene(dev, serving_ms)
     torch.cuda.empty_cache()
+    lap("recorded_scene")
     by_path["eval_xmem"] = eval_xmem(dev)
+    torch.cuda.empty_cache()
+    lap("eval_xmem")
+    by_path["train_xmem"] = train_xmem(dev)
+    lap("train_xmem")
+    emit({"phase": "phase_seconds", **wall, "total": time.perf_counter() - t0})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for row in rows:

@@ -40,6 +40,8 @@ def _load_torch_sd(path: str) -> dict:
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
+    if isinstance(sd, dict) and "model" in sd and "optimizer" in sd:
+        sd = sd["model"]  # a training checkpoint (models/xmem/trainer.py)
     return dict(sd)
 
 
@@ -116,11 +118,18 @@ def load_groundingdino(path: str, device):
 
 
 def load_xmem(path: str, cfg, device):
+    """An XMem from the reference's ``XMem.pth``, a training checkpoint of
+    the port (``trainer.save_checkpoint``), a JAX ``.npz`` or a JAX
+    trainer pickle."""
     from d3fields_tpu_torch.models.xmem import network as xnet
+    from d3fields_tpu_torch.utils.convert import read_trainer_pickle
 
     model = xnet.XMem(cfg, device=device)
     if path.endswith(".npz"):
         return xnet.load_jax_params(model, load_params(path)[0]).eval()
+    blob = read_trainer_pickle(path)
+    if blob is not None:
+        return xnet.load_jax_params(model, blob["params"]).eval()
     sd = _load_torch_sd(path)
     w = sd.get("value_encoder.conv1.weight")
     if w is not None and w.shape[1] == 4:

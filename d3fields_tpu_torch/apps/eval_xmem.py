@@ -15,15 +15,16 @@ and reports FPS (``total_frames / total_process_time``,
   <root>/JPEGImages/<video>/*          YouTube-VOS checkout
   <root>/Annotations/<video>/*.png
 
-or synthetic drifting-sphere videos with ``--synthetic``. Frames are read
-as PNG (``utils/png.py``): a JPEG frame stops the run, as the port has no
-JPEG decoder yet (ROADMAP.md, Queue 1 item 11).
+or synthetic drifting-sphere videos with ``--synthetic``. Frames are PNG
+or JPEG files, read as ``cv2.imread`` reads them (``utils/png.py``,
+``utils/jpeg.py``).
 
 Seeding follows the reference protocol: every annotation frame that brings
 an unseen object id seeds the tracker (frame 0 for DAVIS, each object's
 first appearance for YouTube-VOS, through the multi-group memory).
-``--ckpt`` takes the reference's ``XMem.pth``, a JAX ``.npz`` or a JAX
-trainer pickle with a ``"params"`` tree; without it the weights are random
+``--ckpt`` takes the reference's ``XMem.pth``, a checkpoint of the port's
+``train_xmem``, a JAX ``.npz`` or a JAX trainer pickle with a ``"params"``
+tree; without it the weights are random
 (``network.init_params``, seeded). It runs on CUDA unless ``main`` is given
 another ``device``.
 """
@@ -33,7 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import pickle
 
 import numpy as np
 
@@ -47,7 +47,8 @@ def build_parser():
                         "sources; synthetic always uses the cap)")
     p.add_argument("--size", type=int, default=480)
     p.add_argument("--ckpt", default=None,
-                   help="XMem.pth, a JAX .npz, or a JAX trainer checkpoint")
+                   help="XMem.pth, a train_xmem checkpoint, a JAX .npz, or a JAX "
+                        "trainer checkpoint")
     p.add_argument("--key_dim", type=int, default=64)
     p.add_argument("--value_dim", type=int, default=512)
     p.add_argument("--hidden_dim", type=int, default=64)
@@ -101,44 +102,15 @@ def make_config(args):
                       deep_update_every=args.deep_update_every)
 
 
-class _Opaque:
-    """Stands in for any class of a trainer pickle outside numpy (the
-    optimizer state's optax types), so that reading its parameters imports
-    neither JAX nor optax."""
-
-    def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
-
-    def __init__(self, *args, **kwargs):
-        pass
-
-    def __setstate__(self, state):
-        pass
-
-
-class _ParamsUnpickler(pickle.Unpickler):
-    def find_class(self, module, name):
-        if module.split(".")[0] in ("numpy", "builtins", "collections", "copyreg", "_codecs"):
-            return super().find_class(module, name)
-        return _Opaque
-
-
 def load_model(args, cfg, device):
-    """The XMem of ``--ckpt`` (a trainer pickle's ``"params"``, a JAX
-    ``.npz`` or a torch ``XMem.pth``), or seeded random weights."""
+    """The XMem of ``--ckpt`` (``XMem.pth``, a training checkpoint of the
+    port, a JAX ``.npz`` or a JAX trainer pickle's ``"params"``), or seeded
+    random weights."""
     from d3fields_tpu_torch.apps._backends import load_xmem
     from d3fields_tpu_torch.models.xmem import network as xnet
 
     if not args.ckpt:
         return xnet.init_params(cfg, device=device).eval()
-    if not args.ckpt.endswith(".npz"):
-        try:
-            with open(args.ckpt, "rb") as f:
-                blob = _ParamsUnpickler(f).load()
-        except (pickle.UnpicklingError, EOFError, ValueError):
-            blob = None  # a torch zip file
-        if isinstance(blob, dict) and "params" in blob:
-            return xnet.load_jax_params(xnet.XMem(cfg, device=device), blob["params"]).eval()
     return load_xmem(args.ckpt, cfg, device)
 
 
@@ -167,12 +139,10 @@ def directory_videos(root: str, split, frames: int):
     """The videos of a directory layout: (name, get_rgb, get_mask, n)."""
     from d3fields_tpu_torch.models.xmem.data import (
         IMAGE_EXTS, load_index_mask, resolve_video_dirs)
-    from d3fields_tpu_torch.utils.png import imread_color, refuse_jpeg
+    from d3fields_tpu_torch.utils.png import imread_color
 
     for vid, fdir, mdir in resolve_video_dirs(root, subset=split):
         names = sorted(n for n in os.listdir(fdir) if n.lower().endswith(IMAGE_EXTS))
-        for n in names:
-            refuse_jpeg(n)
 
         def get_rgb(t, names=names, fdir=fdir):
             return imread_color(os.path.join(fdir, names[t]))[..., ::-1]

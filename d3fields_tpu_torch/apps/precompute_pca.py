@@ -10,11 +10,11 @@ Counterpart of ``d3fields_tpu/apps/precompute_pca.py`` (reference
       --out pca_model/mug.pkl
   python -m d3fields_tpu_torch.apps.precompute_pca --synthetic --out out/pca.pkl
 
-Images are PNG files, read as ``cv2.imread`` reads them
-(``utils/png.py::imread_color``) and resized as ``cv2.resize`` does
-(``models/resize.py::linear_resize_u8``); JPEG files are refused (no JPEG
-decoder yet). DINOv2 is built from ``D3F_DINOV2_CKPT`` by
-``apps/_backends.py`` on ``device`` (CUDA unless ``main`` is given another).
+Images are PNG or JPEG files, read as ``cv2.imread`` reads them
+(``utils/png.py::imread_color``, ``utils/jpeg.py``) and resized as
+``cv2.resize`` does (``models/resize.py::linear_resize_u8``). DINOv2 is
+built from ``D3F_DINOV2_CKPT`` by ``apps/_backends.py`` on ``device``
+(CUDA unless ``main`` is given another).
 """
 
 from __future__ import annotations
@@ -63,12 +63,10 @@ def main(argv=None, *, device=None):
 
         from d3fields_tpu_torch.apps._backends import build_feature_backend
         from d3fields_tpu_torch.models.resize import linear_resize_u8
-        from d3fields_tpu_torch.utils.png import imread_color, refuse_jpeg
+        from d3fields_tpu_torch.utils.png import imread_color
 
         if not args.images:
-            raise SystemExit("--images (PNG files) or --synthetic is required")
-        for path in args.images:
-            refuse_jpeg(path)
+            raise SystemExit("--images (PNG or JPEG files) or --synthetic is required")
         backend = build_feature_backend(device=device)
         size = (14 * args.patch_h, 14 * args.patch_w)
         imgs = np.stack([linear_resize_u8(imread_color(p), size) for p in args.images])

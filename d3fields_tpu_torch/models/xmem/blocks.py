@@ -8,6 +8,7 @@ state dict loads as it is:
 - convolutions are ``F.conv2d`` in NCHW with OIHW weights;
 - batch norm is inference-mode with running statistics, whatever the
   module's train/eval mode (the reference always runs frozen checkpoints);
+  training makes the statistics trainable leaves (:func:`batch_norm`);
 - the object ("group") axis is folded into the batch axis before convs:
   every group block takes (B*O, C, H, W);
 - the GRU updaters keep the reference's gate order, new value before the
@@ -38,7 +39,16 @@ def conv(cin: int, cout: int, k: int, *, stride: int = 1, padding: int = 0,
 
 
 def batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
-    """Inference-mode batch norm with the module's running statistics."""
+    """Inference-mode batch norm with the module's running statistics.
+
+    Training (``trainer.py``) makes the statistics trainable leaves, as the
+    JAX package's parameter tree holds them; then the norm is its
+    arithmetic, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, which
+    carries their gradients (``F.batch_norm`` gives none)."""
+    if bn.running_mean.requires_grad or bn.running_var.requires_grad:
+        shape = (1, -1, 1, 1)
+        inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        return (x - bn.running_mean.view(shape)) * inv.view(shape) + bn.bias.view(shape)
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                         training=False, eps=bn.eps)
 
@@ -81,12 +91,25 @@ def gru_update(g: Tensor, h: Tensor, transform: nn.Conv2d) -> Tensor:
     return forget * h * (1.0 - update) + update * new_value
 
 
+def clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    """``jnp.clip``: the values of ``torch.clamp``, and its gradient, which
+    at a value equal to a bound is half the incoming one (``torch.clamp``
+    passes all of it). Near 1, sigmoid probabilities land on the bound
+    ``1 - 1e-7`` exactly, where the log-odds amplify the difference.
+    Without autograd it is ``torch.clamp``."""
+    y = x.clamp(lo, hi)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return y
+    tie = (x == lo) | (x == hi)
+    return torch.where(tie, 0.5 * x + 0.5 * x.detach(), y)  # the value x, half the gradient
+
+
 def soft_aggregate(prob: Tensor, dim: int) -> Tensor:
     """Soft aggregation from STM (``aggregate.py:6-19``): prepend the
     implicit background prod(1-p) and renormalise through logits, in f32."""
     prob = prob.float()
     bg = torch.prod(1.0 - prob, dim=dim, keepdim=True)
-    new_prob = torch.clamp(torch.cat([bg, prob], dim=dim), 1e-7, 1.0 - 1e-7)
+    new_prob = clip(torch.cat([bg, prob], dim=dim), 1e-7, 1.0 - 1e-7)
     logits = torch.log(new_prob / (1.0 - new_prob))
     return torch.softmax(logits, dim=dim)
 

@@ -173,10 +173,10 @@ def _fusion(sd: dict, prefix: str, p: dict) -> None:
     _conv(sd, prefix + ".attention.SpatialGate.spatial.conv", att["spatial"])
 
 
-def load_jax_params(model: XMem, params: Dict) -> XMem:
-    """Copy the JAX package's XMem parameter tree (from its ``init_params``
-    or ``convert_torch_state_dict``, leaves as numpy arrays) into ``model``,
-    in place. Returns ``model``."""
+def jax_state_dict(params: Dict) -> Dict[str, np.ndarray]:
+    """The JAX package's XMem parameter tree (or any tree of its shape, such
+    as AdamW's moments of it) as numpy arrays under the state-dict names of
+    :class:`XMem`, in its layouts."""
     sd: dict = {}
     ke, ve, dec = params["key_encoder"], params["value_encoder"], params["decoder"]
     _conv(sd, "key_encoder.conv1", ke["conv1"])
@@ -199,7 +199,14 @@ def load_jax_params(model: XMem, params: Dict) -> XMem:
         _conv(sd, f"decoder.{up}.skip_conv", dec[up]["skip"])
         _group_res(sd, f"decoder.{up}.out_conv", dec[up]["out"])
     _conv(sd, "decoder.pred", dec["pred"])
+    return sd
 
+
+def load_jax_params(model: XMem, params: Dict) -> XMem:
+    """Copy the JAX package's XMem parameter tree (from its ``init_params``
+    or ``convert_torch_state_dict``, leaves as numpy arrays) into ``model``,
+    in place. Returns ``model``."""
+    sd = jax_state_dict(params)
     own = model.state_dict()
     missing = {k for k in own if k not in sd and not k.endswith("num_batches_tracked")}
     unexpected = set(sd) - set(own)

@@ -8,7 +8,10 @@ one does not, and the JAX package's libraries (written next to the
 sources) are never touched. Sources live in ``native/`` at the repository
 root (shared with the JAX package: isosurface, point cloud) or in the
 port's own ``d3fields_tpu_torch/native/`` (:data:`PORT_NATIVE_DIR`: the
-PNG unfilter). There is no fallback: if g++ fails, the error is raised.
+PNG unfilter, the JPEG decoder, the affine warps). No expression is
+fused into a multiply-add unless the source asks for one
+(``-ffp-contract=off``): the warps reproduce OpenCV's roundings. There
+is no fallback: if g++ fails, the error is raised.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ _REPO_ROOT = os.path.dirname(_PKG_DIR)
 NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
 PORT_NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -9,12 +9,15 @@ has dropped the keys the JAX audit allows unused. Conversion bugs are
 silent, so every other leftover or missing key raises, listing the keys.
 :func:`load_params` reads a pytree that the JAX package's ``save_params``
 wrote; each family's ``load_jax_params`` carries it into the module.
+:func:`read_trainer_pickle` reads a JAX trainer checkpoint (a pickle of
+numpy leaves and optax state) without importing JAX or optax.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -146,3 +149,66 @@ def load_params(path: str):
         if k.startswith(f"__meta__{_SEP}")
     }
     return _unflatten(flat), meta
+
+
+class Opaque:
+    """Stands in for a class of a trainer pickle outside numpy and the
+    standard library (the optimizer state's optax types), so that reading
+    the pickle imports neither JAX nor optax. ``cls_name`` is the class it
+    stands for; ``args`` are what the pickle built it from (a NamedTuple's
+    fields) and ``state`` what it set on it."""
+
+    cls_name = ""
+
+    def __new__(cls, *args, **kwargs):
+        obj = object.__new__(cls)
+        obj.args, obj.state = args, None
+        return obj
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class _TrainerUnpickler(pickle.Unpickler):
+    _SAFE = ("numpy", "builtins", "collections", "copyreg", "_codecs")
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in self._SAFE:
+            return super().find_class(module, name)
+        return type(name, (Opaque,), {"cls_name": name})
+
+
+def read_trainer_pickle(path: str) -> Optional[dict]:
+    """The dict a JAX trainer's ``save_checkpoint`` pickled (``"it"``,
+    ``"params"``, ``"opt_state"``), optax classes as :class:`Opaque`; None
+    if ``path`` is no such pickle. A zip file (``torch.save``'s format) is
+    told by its magic and not unpickled."""
+    try:
+        with open(path, "rb") as f:
+            if f.read(4) == b"PK\x03\x04":
+                return None
+            f.seek(0)
+            blob = _TrainerUnpickler(f).load()
+    except (pickle.UnpicklingError, EOFError, ValueError):
+        return None
+    return blob if isinstance(blob, dict) and "params" in blob else None
+
+
+def find_opaque(tree, cls_name: str):
+    """The first :class:`Opaque` standing for ``cls_name`` in a nest of
+    tuples, lists and dicts, or None."""
+    if isinstance(tree, Opaque):
+        if tree.cls_name == cls_name:
+            return tree
+        tree = tree.args
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            hit = find_opaque(t, cls_name)
+            if hit is not None:
+                return hit
+    return None

@@ -6,7 +6,11 @@ give what ``cv2.imread`` gives:
 
 - :func:`imread_color` is ``cv2.imread(path)``: BGR uint8 (H, W, 3); an
   8-bit greyscale file is repeated into three channels and an RGBA file
-  loses its alpha;
+  loses its alpha. A JPEG file (by its SOI marker) goes to
+  :mod:`d3fields_tpu_torch.utils.jpeg`;
+- :func:`imread_gray` is ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``: an
+  8-bit greyscale file as stored, a colour one through libpng's
+  ``rgb_to_gray`` with OpenCV's coefficients (0.299, 0.587);
 - :func:`imread_anydepth` is ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` of a
   greyscale file: (H, W) uint8 or uint16.
 
@@ -36,9 +40,9 @@ from typing import Optional
 import numpy as np
 
 from d3fields_tpu_torch.native_build import PORT_NATIVE_DIR, load_native
+from d3fields_tpu_torch.utils.jpeg import SOI, imread_jpeg
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_EXTS = (".jpg", ".jpeg")
 COLOR_TYPES = {0: "greyscale", 2: "truecolour (RGB)", 3: "indexed colour",
                4: "greyscale with alpha", 6: "truecolour with alpha (RGBA)"}
 # the (colour type, bit depth) pairs read here -> samples per pixel
@@ -132,8 +136,12 @@ def read_png(path: str) -> np.ndarray:
 
 
 def imread_color(path: str) -> np.ndarray:
-    """``cv2.imread(path)`` of an 8-bit PNG: BGR uint8 (H, W, 3). A
-    paletted file gives its palette's colours."""
+    """``cv2.imread(path)`` of an 8-bit PNG or a JPEG file: BGR uint8 (H, W,
+    3). A paletted PNG gives its palette's colours."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head == SOI:
+        return imread_jpeg(path)
     img, palette = _read_png(path)
     if palette is not None:
         return np.ascontiguousarray(palette[img][..., ::-1])
@@ -153,14 +161,20 @@ def imread_anydepth(path: str) -> np.ndarray:
     return img
 
 
-def refuse_jpeg(path: str) -> None:
-    """Raise ``NotImplementedError`` for a JPEG file: the port reads PNG
-    only, and has no JPEG decoder yet (ROADMAP.md, Queue 1 item 11)."""
-    if path.lower().endswith(JPEG_EXTS):
-        raise NotImplementedError(
-            f"{path}: JPEG frames are not read by d3fields_tpu_torch yet: it has no JPEG "
-            "decoder without OpenCV or Pillow (ROADMAP.md, Queue 1 item 11, the baseline JPEG "
-            "decoder). Convert the frames to PNG.")
+def imread_gray(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` of an 8-bit PNG: (H, W)
+    uint8. Colour (and paletted) pixels become libpng's
+    ``(9797 r + 19234 g + 3737 b) >> 15``, grey ones keep their value."""
+    img, palette = _read_png(path)
+    if palette is not None:
+        img = palette[img]
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: a 16-bit PNG is not read as a greyscale image here")
+    if img.ndim == 2:
+        return img
+    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+    grey = (9797 * r + 19234 * g + 3737 * b) >> 15
+    return np.where((r == g) & (r == b), r, grey).astype(np.uint8)
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

@@ -446,7 +446,8 @@ def test_precompute_pca_images_matches_jax(tmp_path, recorded_env):
     """--images on two of the recorded colour PNGs with the tiny DINOv2
     checkpoint, against the JAX app's steps (cv2.imread, cv2.resize, its
     backbone at float32, fit_fg_pca: its main reshapes to 1,024 channels,
-    which the tiny model has not); a JPEG input is refused."""
+    which the tiny model has not). A JPEG input gives what the PNG of its
+    ``cv2.imread`` pixels gives."""
     import cv2
 
     from d3fields_tpu.apps import precompute_pca as jpca
@@ -464,5 +465,72 @@ def test_precompute_pca_images_matches_jax(tmp_path, recorded_env):
     np.testing.assert_allclose(got.mean, want.mean, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.components, want.components, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.components @ got.components.T, np.eye(3), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tpca.main(["--images", "a.jpg", "--out", str(tmp_path / "x.pkl")], device="cpu")
+    jpg, png = str(tmp_path / "a.jpg"), str(tmp_path / "a.png")
+    cv2.imwrite(jpg, cv2.imread(images[0]))
+    cv2.imwrite(png, cv2.imread(jpg))
+    for path, name in ((jpg, "j.pkl"), (png, "p.pkl")):
+        assert tpca.main(["--images", path, "--patch_h", str(ph), "--patch_w", str(pw),
+                          "--out", str(tmp_path / name)], device="cpu") == 0
+    from_jpg, from_png = (PCAParams.load(str(tmp_path / n)) for n in ("j.pkl", "p.pkl"))
+    np.testing.assert_array_equal(from_jpg.mean, from_png.mean)
+    np.testing.assert_array_equal(from_jpg.components, from_png.components)
+
+
+# ---------------------------------------------------------------------------
+# train_xmem: ports of tests/test_apps.py:145-181
+# ---------------------------------------------------------------------------
+
+TRAIN_TINY = ["--batch", "1", "--num_frames", "3", "--size", "48", "64", "--key_dim", "8",
+              "--value_dim", "16", "--hidden_dim", "8"]
+
+
+def test_train_xmem_synthetic(tmp_path):
+    """Two synthetic steps with a checkpoint and a training image dump
+    (tests/test_apps.py:145-160)."""
+    from d3fields_tpu_torch.apps import train_xmem
+    from d3fields_tpu_torch.utils.png import read_png
+
+    out = str(tmp_path / "train")
+    assert train_xmem.main(["--synthetic", "--steps", "2", *TRAIN_TINY, "--save_every", "2",
+                            "--log_every", "1", "--dump_images_every", "2", "--out", out],
+                           device="cpu") == 0
+    assert {"ckpt_2.pt", "ckpt_final.pt", "train.jsonl"} <= set(os.listdir(out))
+    dumps = os.listdir(os.path.join(out, "images"))
+    assert dumps == ["0000002.png"]
+    grid = read_png(os.path.join(out, "images", dumps[0]))
+    assert grid.shape == (48, 3 * 64, 3)  # frame | ground truth | prediction
+    ckpt = torch.load(os.path.join(out, "ckpt_final.pt"), weights_only=True)
+    assert ckpt["it"] == 2
+
+
+def test_train_xmem_staged_with_finetune_tail(tmp_path, capsys):
+    """--stage presets drive the loop: 2 main steps + 1 finetune step
+    (the low-augmentation tail, reference train.py:232-236), the final
+    checkpoint at the combined total (tests/test_apps.py:163-181); a
+    --resume of it with one more finetune step goes on from there."""
+    from d3fields_tpu_torch.apps import train_xmem
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+
+    out = str(tmp_path / "train")
+    argv = ["--stage", "2", "--synthetic", "--num_ref_frames", "2", *TRAIN_TINY,
+            "--save_every", "100", "--log_every", "1", "--out", out]
+    assert train_xmem.main(argv + ["--steps", "2", "--finetune", "1"], device="cpu") == 0
+    assert "it=2 entering finetune phase" in capsys.readouterr().out
+    cfg = tconfig.XMemConfig(key_dim=8, value_dim=16, hidden_dim=8)
+    state = TR.load_checkpoint(os.path.join(out, "ckpt_final.pt"), cfg, TR.make_optimizer(),
+                               "cpu")
+    assert state.it == 3  # steps + finetune
+    final = os.path.join(out, "ckpt_final.pt")
+    os.replace(final, os.path.join(out, "ckpt_3.pt"))
+    assert train_xmem.main(argv + ["--steps", "2", "--finetune", "2", "--resume",
+                                   os.path.join(out, "ckpt_3.pt")], device="cpu") == 0
+    assert "resumed from" in capsys.readouterr().out
+    assert torch.load(final, weights_only=True)["it"] == 4
+
+
+def test_train_xmem_dp_is_not_ported(tmp_path):
+    """--dp above 1 (torch DDP) waits for the multi-GPU slice."""
+    from d3fields_tpu_torch.apps import train_xmem
+
+    with pytest.raises(NotImplementedError, match="item 13"):
+        train_xmem.main(["--synthetic", "--dp", "2", "--out", str(tmp_path)], device="cpu")

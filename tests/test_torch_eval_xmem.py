@@ -8,9 +8,8 @@ off the near-ties (as ``tests/test_torch_xmem.py`` holds the tracker). A
 near-tie label that rounding flips moves J and F by ~1e-4, so each app's
 ``metrics.json`` is held at 1e-12 to the JAX ``davis_jf`` of its own masks.
 The other cases are the JAX app's own
-cases of ``tests/test_apps.py`` run on the port (PNG frames where those
-write JPEG: the port reads no JPEG yet). Frames are written by OpenCV and
-masks by Pillow, which only the tests import.
+cases of ``tests/test_apps.py`` run on the port. Frames are written by
+OpenCV and masks by Pillow, which only the tests import.
 """
 
 import json
@@ -345,13 +344,31 @@ def test_eval_xmem_ytvos_first_appearance(tmp_path, ckpts, capsys):
 
 
 def test_eval_xmem_refuses_jpeg_frames(tmp_path):
-    """A .jpg frame stops the run before any output, naming the gap."""
-    vdir = tmp_path / "data" / "vid0"
-    _write_video(vdir / "frames", vdir / "masks", 2, ext=".jpg")
-    with pytest.raises(NotImplementedError, match="JPEG.*item 11"):
-        teval.main(["--data_root", str(tmp_path / "data"), *TINY, "--out",
-                    str(tmp_path / "out")], device="cpu")
-    assert not os.path.exists(tmp_path / "out" / "vid0")
+    """JPEG frames are read as ``cv2.imread`` reads them (the port once
+    refused them): a video of .jpg frames gives the same masks and scores
+    as the PNG files of their decoded pixels."""
+    vdir = tmp_path / "jpg" / "vid0"
+    _write_video(vdir / "frames", vdir / "masks", 3, ext=".jpg")
+    pdir = tmp_path / "png" / "vid0"
+    os.makedirs(pdir / "frames")
+    for t in range(3):
+        cv2.imwrite(str(pdir / "frames" / f"{t:05d}.png"),
+                    cv2.imread(str(vdir / "frames" / f"{t:05d}.jpg")))
+    os.symlink(vdir / "masks", pdir / "masks")
+    outs = {}
+    for kind in ("jpg", "png"):
+        outs[kind] = str(tmp_path / f"out_{kind}")
+        assert teval.main(["--data_root", str(tmp_path / kind), *TINY, "--save_scores",
+                           "--out", outs[kind]], device="cpu") == 0
+    names = sorted(os.listdir(os.path.join(outs["jpg"], "vid0")))
+    assert names == sorted(os.listdir(os.path.join(outs["png"], "vid0")))
+    assert "00001.png" in names and "00002.png" in names
+    for n in names:
+        a, b = (os.path.join(outs[k], "vid0", n) for k in ("jpg", "png"))
+        if n.endswith(".png"):
+            np.testing.assert_array_equal(_read(a), _read(b))
+        else:
+            np.testing.assert_array_equal(np.load(a), np.load(b))
 
 
 def test_eval_apps_run_on_cuda_unless_asked(tmp_path):

@@ -229,7 +229,8 @@ def test_paletted_png_reads_its_indices(tmp_path, colors, bits, W):
 def test_paletted_png_round_trip_and_index_masks(tmp_path):
     """save_png(palette=) writes a P file Pillow reads back with its palette;
     the port's load_index_mask equals the JAX one on paletted, greyscale and
-    RGB masks; a JPEG path is refused, naming the gap."""
+    RGB masks; a JPEG file (once refused) reads as ``cv2.imread`` reads it,
+    whatever its extension's case."""
     from PIL import Image
 
     from d3fields_tpu.models.xmem.data import load_index_mask as jload
@@ -252,6 +253,6 @@ def test_paletted_png_round_trip_and_index_masks(tmp_path):
         np.testing.assert_array_equal(tload(q), jload(q))
     with pytest.raises(ValueError, match="past the 5-entry palette"):
         png.save_png(p, m + 1, palette=pal)
-    with pytest.raises(NotImplementedError, match="JPEG.*item 11"):
-        png.refuse_jpeg("frames/00000.JPG")
-    png.refuse_jpeg("frames/00000.png")
+    j = str(tmp_path / "00000.JPG")
+    cv2.imwrite(j, np.stack([m * 40, m * 20, 255 - m * 30], -1).astype(np.uint8))
+    np.testing.assert_array_equal(png.imread_color(j), cv2.imread(j))

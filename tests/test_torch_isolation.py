@@ -66,3 +66,14 @@ def test_no_port_source_imports_jax_or_the_reference():
                     offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {m}")
     assert len(_port_files()) > 10
     assert not offenders, offenders
+
+
+def test_training_and_image_modules_are_among_the_checked():
+    """XMem training, its data pipeline, the JPEG decoder and the OpenCV
+    equivalents are discovered by the checks above (they walk the package)."""
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    for rel in ("models/xmem/trainer.py", "models/xmem/data.py", "apps/train_xmem.py",
+                "utils/jpeg.py", "utils/imgwarp.py", "utils/png.py"):
+        assert rel in files, rel
+    for src in ("jpeg.cpp", "imgwarp.cpp", "png.cpp"):
+        assert os.path.exists(os.path.join(PORT, "native", src)), src
