@@ -26,7 +26,7 @@ seeded generators:
    port's own CPU run;
 5. ``vis_repr_backends``: the same app with the DINOv2 backbone of 1. and
    the GroundedSAM backend of 2. on the synthetic rig's colour and depth;
-6. ``tracking``: vis_tracking's staged loop at full width (4 frames of 4
+6. ``tracking``: vis_tracking's staged loop at full width (2 frames of 4
    views at 240x320, 1,024-d descriptors, 100 keypoints per instance from
    a 36M-point grid, 100 Adam steps a frame), the recovered drift checked
    and frame 0's keypoints held to the CPU's;
@@ -39,7 +39,7 @@ seeded generators:
    ``text_queries_for_inst_mask`` -> ``rigid_tracking_steps``), through
    ``FusedFrameStep.step`` and through ``step_segment``, held together;
 9. ``recorded_scene``: the recorded-scene path. The drifting spheres are
-   written as a 6-frame 4-view recorded scene (PNG colour and depth, .npy
+   written as a 4-frame 4-view recorded scene (PNG colour and depth, .npy
    cameras), full-width random checkpoints in the reference layouts
    (torch-hub DINOv2 ViT-L/14, huggingface GroundingDINO swin-T and SAM
    ViT-H, XMem.pth) and a vocab are written beside it, and the apps build
@@ -61,7 +61,20 @@ seeded generators:
    videos for 4 steps and a ``--resume`` of 1 more, and ``eval_xmem
    --ckpt`` reads its checkpoint; the committed JPEG fixtures are decoded
    and held to their recorded ``cv2.imread`` SHA-256, and a stage-0 run
-   trains on them (``--static_root``).
+   trains on them (``--static_root``);
+12. ``click_track``: ``apps/click_track.py`` with SAM ViT-H and
+   ``XMemConfig()`` read from checkpoints in the reference layouts, on a
+   480x854 video of 24 PNG frames: two groups of four clicks (the second
+   entering at frame 8), ``--refine 1``; SAM's point decode on the card
+   held to the same decoder on the CPU fed the card's image embedding;
+13. ``interactive``: ``apps/interactive.py`` with f-BRS (HRNet-18s, OCR
+   64), S2M (DeepLabV3+ ResNet-50) and ``XMemConfig()`` from checkpoints,
+   a 24-frame 480x854 uncompressed AVI through ``--video``: a free stroke,
+   three f-BRS clicks (f-BRS-B and the zoom-in from the second), undo, a
+   scribble, forward propagation, the five overlays, then a resumed run
+   propagating backward; f-BRS's forward and one BRS loss and gradient, and
+   S2M's probabilities held to the CPU, each run's saved masks to the
+   session's.
 
 The ``tracking`` phase and the recorded tracking runs also write
 ``tracking.avi`` (the ``TrackVis`` mosaics, uncompressed AVI) in the app's
@@ -72,7 +85,8 @@ Every kernel's launch counter is set to 0 just before each path's requests
 and read just after them, so the run shows each path went through its
 kernels (the tracking, XMem, serving-step, evaluation and training paths
 have none: the tracking loss differentiates the unfused field query, as in
-the JAX package, and XMem runs no TPU kernel there either). After the counted
+the JAX package, and XMem runs no TPU kernel there either; nor do the
+interactive tools). After the counted
 requests, one more request of each path is traced with torch.profiler for the device time by
 kernel and the device's idle share (traces under build/traces/), and each
 kernel is held and timed on the inputs a request gives it: one field-query
@@ -1188,7 +1202,7 @@ def vis_repr_backends(dev, backbone, seg_backend) -> dict:
 
 
 def tracking(dev) -> dict:
-    """vis_tracking's staged loop at full width: 4 frames of the drifting
+    """vis_tracking's staged loop at full width: 2 frames of the drifting
     spheres at 240x320 with 1,024-d descriptors, 100 keypoints per instance
     at res 0.002, ``TrackingConfig()`` (100 Adam steps) at every frame, and
     the app's consumer: each frame's ``TrackVis`` mosaic into tracking.avi
@@ -1206,7 +1220,7 @@ def tracking(dev) -> dict:
     from d3fields_tpu_torch.utils.synthetic import sphere_mask_backend
     from d3fields_tpu_torch.utils.visualization import TrackVis, jet_colors
 
-    labels, frames, res_kp, per_inst = ["shoe", "shoe"], 4, 0.002, 100
+    labels, frames, res_kp, per_inst = ["shoe", "shoe"], 2, 0.002, 100
     out_dir = os.path.join(OUT, "tracking")
     os.makedirs(out_dir, exist_ok=True)
     scenes = [synthetic_frame(t, 4, 240, 320, 1024) for t in range(frames)]
@@ -1735,13 +1749,13 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
 # slice 6: the recorded-scene path (checkpoint files -> the apps)
 # ---------------------------------------------------------------------------
 
-RECORDED_FRAMES = 6
+RECORDED_FRAMES = 4  # the fewest that drive both a segment of 2 and a lone step
 SCENE_DIR = os.path.join(OUT, "scene")
 CKPT_DIR = os.path.join(OUT, "ckpts")
 # vis_repr --synthetic's workspace (vis_repr.synthetic_inputs)
 REPR_BOUNDS = ["--x_lower", "-0.3", "--x_upper", "0.5", "--y_lower", "-0.3", "--y_upper", "0.35",
                "--z_lower", "0.001", "--z_upper", "0.3"]
-# the two spheres over the 6 frames' drift: 3.9M keypoint candidates at
+# the two spheres over 6 frames' drift: 3.9M keypoint candidates at
 # select_keypoints' 2 mm, not SYNTHETIC_BOUNDARIES' 36M (10-17 s a run)
 TRACK_BOUNDS = ["--x_lower", "-0.16", "--x_upper", "0.3", "--y_lower", "-0.16", "--y_upper", "0.2",
                 "--z_lower", "0.001", "--z_upper", "0.2",
@@ -1767,7 +1781,7 @@ def write_vocab(path: str) -> None:
 
 def recorded_scene(dev, serving_ms: dict) -> dict:
     """Both apps on a recorded scene with backends built from checkpoint
-    files. The 4-view 240x320 drifting spheres, 6 frames, are written as
+    files. The 4-view 240x320 drifting spheres, RECORDED_FRAMES frames, are written as
     PNG files and .npy cameras under build/chip_smoke/scene; full-width
     random checkpoints in the reference layouts (torch-hub DINOv2 ViT-L/14,
     huggingface GroundingDINO swin-T and SAM ViT-H, XMem.pth at
@@ -1775,7 +1789,7 @@ def recorded_scene(dev, serving_ms: dict) -> dict:
     the end. ``vis_repr --data_path`` is held bit for bit to ``vis_repr.run``
     with the in-memory models on the same ``load_frame`` observation;
     ``vis_tracking --data_path --fused --segment 2`` to the staged loop over
-    the same 6 frames at SERVING_ATOL. The tracking runs take the analytic
+    the same frames at SERVING_ATOL. The tracking runs take the analytic
     sphere masks through ``_backends.build_mask_backend``: random
     GroundingDINO weights give no stable instances to track."""
     import shutil
@@ -1887,7 +1901,8 @@ def recorded_vis_repr(dev, dmodel, gmodel, smodel, env):
 
 def recorded_tracking(dev):
     """``vis_tracking --data_path`` staged and ``--fused --segment 2`` over
-    the 6 frames, DINOv2 and XMem from the files, held at SERVING_ATOL."""
+    the RECORDED_FRAMES frames, DINOv2 and XMem from the files, held at
+    SERVING_ATOL."""
     from d3fields_tpu_torch import Fusion, serving
     from d3fields_tpu_torch.apps import _backends, vis_tracking
     from d3fields_tpu_torch.models import dinov2
@@ -1927,8 +1942,9 @@ def recorded_tracking(dev):
                 argv + ["--fused", "--segment", "2", "--out", fused_dir], device=dev))
             fused_s = time.perf_counter() - t0
         check(code == 0, "vis_tracking --data_path --fused --segment 2 exited with an error")
-    check(len(fused_t["step_segment"]) == 2 and len(fused_t["step"]) == 1,
-          f"fused frames {fused_t}: want two 2-frame segments and a 1-frame tail")
+    tracked = RECORDED_FRAMES - 1
+    check(len(fused_t["step_segment"]) == tracked // 2 and len(fused_t["step"]) == tracked % 2,
+          f"fused frames {fused_t}: want {tracked // 2} 2-frame segments and a 1-frame tail")
     staged, fused = tracking_outputs(staged_dir, RECORDED_FRAMES), \
         tracking_outputs(fused_dir, RECORDED_FRAMES)
     obs = [io.load_frame(SCENE_DIR, t, 4) for t in range(RECORDED_FRAMES)]
@@ -1990,6 +2006,18 @@ EVAL_HOLD_FRAMES = 3   # video 1's first propagated frames held to the CPU
 EVAL_ENTRY = 3         # video 3's object 2 is first annotated on this frame
 
 
+EVAL_DRIFTS = {"vid_1": np.array([[0.008, 0.004, 0.0], [-0.005, 0.006, 0.0]]),
+               "vid_2": np.array([[-0.006, 0.003, 0.0], [0.004, -0.005, 0.0]])}
+
+
+def eval_frame(drift: np.ndarray, t: int) -> dict:
+    """Frame t of a drifting-sphere video at EVAL_HW, one view."""
+    from d3fields_tpu_torch.utils.synthetic import render_sphere_scene
+
+    return render_sphere_scene(num_views=1, H=EVAL_HW[0], W=EVAL_HW[1], feat_dim=4,
+                               focal=520.0, sphere_offsets=drift * t)
+
+
 def write_eval_videos(root: str) -> dict:
     """Three 480x854 drifting-sphere videos of EVAL_FRAMES PNG frames in the
     generic ``<video>/{frames,masks}`` layout, densely annotated with
@@ -1998,15 +2026,11 @@ def write_eval_videos(root: str) -> dict:
     frame EVAL_ENTRY (the multi-group path). An ImageSets split holds vid_1
     alone, for the CPU run."""
     from d3fields_tpu_torch.utils.png import save_png
-    from d3fields_tpu_torch.utils.synthetic import render_sphere_scene
     from d3fields_tpu_torch.utils.visualization import save_index_mask_png
 
-    drifts = {"vid_1": np.array([[0.008, 0.004, 0.0], [-0.005, 0.006, 0.0]]),
-              "vid_2": np.array([[-0.006, 0.003, 0.0], [0.004, -0.005, 0.0]])}
     for t in range(EVAL_FRAMES):
-        for vid, drift in drifts.items():
-            sc = render_sphere_scene(num_views=1, H=EVAL_HW[0], W=EVAL_HW[1], feat_dim=4,
-                                     focal=520.0, sphere_offsets=drift * t)
+        for vid, drift in EVAL_DRIFTS.items():
+            sc = eval_frame(drift, t)
             sm = sc["sphere_masks"][0]
             index = np.where(sm[0], 1, np.where(sm[1], 2, 0)).astype(np.uint8)
             videos = [(vid, index)]
@@ -2116,7 +2140,7 @@ def eval_xmem(dev) -> dict:
 TRAIN_DIR = os.path.join(OUT, "train_xmem")
 TRAIN_HW = (384, 384)        # the reference's training crop (XMem/dataset/vos_dataset.py)
 TRAIN_STEPS = 4              # then a --resume for one more
-TRAIN_WIDTH_ARGS = []        # XMemConfig()'s widths, the app's defaults
+XMEM_WIDTH_ARGS = []         # XMemConfig()'s widths, the apps' defaults
 TRAIN_HOLD = dict(key_dim=16, value_dim=32, hidden_dim=8)  # tests/test_parallel_train.py:62
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_MIN_COS = 1e-5, 1e-4, 0.9999
 # A leaf whose gradient norm is below this share of the whole gradient's is
@@ -2257,7 +2281,7 @@ def train_static(dev) -> tuple:
     out = os.path.join(TRAIN_DIR, "stage0")
     times = {"step_ms": [], "batch_ms": []}
     argv = ["--stage", "0", "--static_root", root, "--steps", "2", "--batch", "4",
-            "--num_frames", "3", "--size", *map(str, TRAIN_HW), *TRAIN_WIDTH_ARGS,
+            "--num_frames", "3", "--size", *map(str, TRAIN_HW), *XMEM_WIDTH_ARGS,
             "--save_every", "100", "--log_every", "1", "--out", out]
     with timed_training(times):
         code, counts = reset_and_count(lambda: app.main(argv, device=dev))
@@ -2305,7 +2329,7 @@ def train_xmem(dev) -> dict:
     out = os.path.join(TRAIN_DIR, "run")
     argv = ["--data_root", data, "--num_frames", "8", "--num_ref_frames", "3",
             "--max_num_obj", "3", "--batch", "2", "--size", *map(str, TRAIN_HW),
-            *TRAIN_WIDTH_ARGS, "--save_every", str(TRAIN_STEPS), "--log_every", "1",
+            *XMEM_WIDTH_ARGS, "--save_every", str(TRAIN_STEPS), "--log_every", "1",
             "--out", out]
     times = {"step_ms": [], "batch_ms": []}
     counts = {}
@@ -2334,7 +2358,7 @@ def train_xmem(dev) -> dict:
     ev = os.path.join(TRAIN_DIR, "eval")
     code, counts["eval"] = reset_and_count(lambda: eval_app.main(
         ["--data_root", data, "--frames", "4", "--size", "480", "--ckpt", final,
-         *TRAIN_WIDTH_ARGS, "--out", ev], device=dev))
+         *XMEM_WIDTH_ARGS, "--out", ev], device=dev))
     check(code == 0, "eval_xmem --ckpt on the trained checkpoint exited with an error")
     with open(os.path.join(ev, "metrics.json")) as f:
         g = json.load(f)["global"]
@@ -2363,6 +2387,373 @@ def train_xmem(dev) -> dict:
           "jpeg": jpeg, "launches": counts})
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)  # checkpoints of 0.3 GB each
     return {k: sum(c[k] for c in counts.values()) for k in counts["train"]}
+
+
+CLICK_DIR = os.path.join(OUT, "click_track")
+CLICK_ENTRY = 8  # the second object's clicks come on this frame
+# two groups of four clicks, two foreground and two background, in 854x480
+# pixels: the first on sphere 1 of frame 0, the second on sphere 2 of frame 8
+CLICK_GROUPS = (f"430,180;450,200;100,80,0;700,420,0|@{CLICK_ENTRY}:"
+                "560,330;540,300;60,400,0;800,60,0")
+SAM_HOLD_REL = 1e-3      # card vs CPU decoder logits and IoU, relative to their scale
+MASK_MIN_AGREE = 0.999   # the chosen mask, card vs CPU (knife-edge logits may flip)
+
+
+def sam_checkpoint(dev, path: str):
+    """SAM ViT-H with random weights (``segment_models``' SAM), written as a
+    huggingface state dict; returns the model."""
+    from d3fields_tpu_torch.models.sam import model as sam
+
+    smodel = sam.init_params(sam.SamConfig.vit_huge(), torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+    torch.save({k: v.cpu() for k, v in smodel.state_dict().items()}, path)
+    return smodel
+
+
+def hold_point_decode(dev, smodel, rgb: np.ndarray) -> dict:
+    """The first click group through ``SamPredictor.predict_points`` on the
+    card, and through the same decoder on the CPU fed the card's image
+    embedding: low-res logits and IoU within SAM_HOLD_REL of their scale,
+    the same best channel, its mask agreeing on MASK_MIN_AGREE of the
+    pixels."""
+    from d3fields_tpu_torch.apps.click_track import parse_clicks
+    from d3fields_tpu_torch.models.sam import model as sam
+    from d3fields_tpu_torch.models.sam.predictor import SamPredictor
+
+    _, pts, lbls = parse_clicks(CLICK_GROUPS)[0]
+    card = SamPredictor(smodel, device=dev).set_image(rgb)
+    masks, iou, low = card.predict_points(pts[None], lbls[None])
+    cpu_model = sam.Sam(smodel.cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in smodel.state_dict().items()})
+    cpu = SamPredictor(cpu_model, device="cpu")
+    cpu._image_embs = card._image_embs.cpu()
+    cpu._orig_hw, cpu._resized_hw = card._orig_hw, card._resized_hw
+    cmasks, ciou, clow = cpu.predict_points(pts[None], lbls[None])
+    low, clow, iou, ciou = (t.cpu().numpy() for t in (low, clow, iou, ciou))
+    row = {"logit_scale": float(np.abs(clow).max()),
+           "logit_rel_err": max_err(low, clow) / float(np.abs(clow).max()),
+           "iou_rel_err": max_err(iou, ciou) / float(np.abs(ciou).max()),
+           "best": [int(iou[0].argmax()), int(ciou[0].argmax())]}
+    best = row["best"][1]
+    row["mask_agreement"] = float((masks[0, best].cpu() == cmasks[0, best]).float().mean())
+    check(row["logit_rel_err"] <= SAM_HOLD_REL and row["iou_rel_err"] <= SAM_HOLD_REL,
+          f"click_track decode card vs CPU: {row}")
+    check(row["best"][0] == row["best"][1], f"click_track best channel card vs CPU: {row}")
+    check(row["mask_agreement"] >= MASK_MIN_AGREE, f"click_track chosen mask: {row}")
+    return row
+
+
+def click_track(dev) -> dict:
+    """``apps/click_track.py`` at full width: SAM ViT-H and ``XMemConfig()``
+    from checkpoints written in the reference layouts, one 480x854 video of
+    EVAL_FRAMES PNG frames, ``--size 480 --refine 1``, two groups of four
+    clicks, the second entering at frame CLICK_ENTRY. Timed: SAM's encode
+    and point decode, XMem per frame, the app's FPS; held: the point decode
+    on the card against the CPU (``hold_point_decode``)."""
+    import io
+    import shutil
+
+    from d3fields_tpu_torch.apps import click_track as app
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.sam.predictor import SamPredictor
+    from d3fields_tpu_torch.seg.video_tracker import VideoMaskTracker
+    from d3fields_tpu_torch.utils.png import imread_color, read_png, save_png
+
+    shutil.rmtree(CLICK_DIR, ignore_errors=True)
+    frames = os.path.join(CLICK_DIR, "data", "vid_1", "frames")
+    os.makedirs(frames)
+    t0 = time.perf_counter()
+    for t in range(EVAL_FRAMES):
+        save_png(os.path.join(frames, f"{t:05d}.png"),
+                 eval_frame(EVAL_DRIFTS["vid_1"], t)["color"][0], filter_type=0)
+    write_seconds = time.perf_counter() - t0
+    ckpt = {"sam": os.path.join(CLICK_DIR, "sam_vit_h.pth"),
+            "xmem": os.path.join(CLICK_DIR, "XMem.pth")}
+    t0 = time.perf_counter()
+    smodel = sam_checkpoint(dev, ckpt["sam"])
+    torch.save({k: v.cpu() for k, v in xmem_model(dev, XMemConfig(), seed=5).state_dict().items()},
+               ckpt["xmem"])
+    ckpt_seconds = time.perf_counter() - t0
+    out = os.path.join(CLICK_DIR, "out")
+    argv = ["--data_root", os.path.join(CLICK_DIR, "data"), "--frames", "0", "--size", "480",
+            "--refine", "1", "--clicks", CLICK_GROUPS, "--sam_ckpt", ckpt["sam"],
+            "--xmem_ckpt", ckpt["xmem"], *XMEM_WIDTH_ARGS, "--out", out]
+    times, stdout = {}, io.StringIO()
+    try:
+        with timed_function(SamPredictor, "set_image", times), \
+                timed_function(SamPredictor, "predict_points", times), \
+                timed_function(VideoMaskTracker, "process", times), \
+                contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            code, counts = reset_and_count(lambda: app.main(argv, device=dev))
+            wall = time.perf_counter() - t0
+    finally:
+        for path in ckpt.values():
+            os.remove(path)
+    check(code == 0, "click_track exited with an error")
+    check(sum(counts.values()) == 0, f"click_track launched {counts}")
+    log = stdout.getvalue().splitlines()
+    fps = [float(ln.split()[-1]) for ln in log if "FPS:" in ln]
+    check(len(fps) == 1, f"click_track printed no FPS: {log}")
+    names = sorted(os.listdir(os.path.join(out, "vid_1")))
+    check(names == [f"{t:05d}.png" for t in range(EVAL_FRAMES)], f"click_track wrote {names}")
+    labels = set()
+    for n in names:
+        m = read_png(os.path.join(out, "vid_1", n))
+        check(m.shape == EVAL_HW and int(m.max()) <= 2, f"click_track {n}: {m.shape}")
+        labels |= set(np.unique(m).tolist())
+    rgb0 = np.ascontiguousarray(imread_color(os.path.join(frames, "00000.png"))[..., ::-1])
+    hold = hold_point_decode(dev, smodel, rgb0)
+    del smodel
+    torch.cuda.empty_cache()
+    proc = times["process"]
+    plain = [ms for t, ms in enumerate(proc) if t not in (0, CLICK_ENTRY)]
+    emit({"phase": "click_track", "video_hw": list(EVAL_HW), "frames": EVAL_FRAMES,
+          "size": 480, "sam": "vit_huge", "xmem": "XMemConfig()", "clicks": CLICK_GROUPS,
+          "refine": 1, "write_frames_seconds": write_seconds,
+          "checkpoint_write_seconds": ckpt_seconds,
+          "sam_encode_ms": times["set_image"], "point_decode_ms": times["predict_points"],
+          "xmem_ms_per_frame": proc, "xmem_ms_median": float(np.median(plain)),
+          "fps": fps[0], "wall_seconds": wall, "labels_seen": sorted(labels),
+          "card_vs_cpu": hold, "sam_hold_rel": SAM_HOLD_REL, "launches": counts,
+          "app_log": log})
+    shutil.rmtree(CLICK_DIR, ignore_errors=True)
+    return counts
+
+
+IA_DIR = os.path.join(OUT, "interactive")
+FBRS_HOLD_REL = 2e-4   # card vs CPU: f-BRS logits, the BRS loss and gradient, to scale
+S2M_HOLD_ATOL = 3e-4   # card vs CPU S2M probabilities (tests/test_interactive.py:300)
+IA_SCRIPT = (
+    "goto 0\n"
+    "object 1\n"
+    "free 1 400,200 460,220\n"
+    "commit\n"
+    "click 440 190 +\n"     # one click: the network alone
+    "click 600 300 -\n"     # from here f-BRS-B and the zoom-in crop
+    "click 430 170 +\n"
+    "undo\n"
+    "scribble 1 420,180 440,190 470,200\n"
+    "commit\n"
+    "propagate forward\n"
+    "import_layer {layer}\n"
+    + "".join(f"vis {m} {{out}}/{m}.png\n" for m in ("davis", "fade", "light", "popup", "layered"))
+    + "save\n")
+
+
+def default_scale(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Convolutions at PyTorch's default scale, U(+-1/sqrt(fan_in)), from a
+    seeded generator, identity batch norms: the JAX ``init_params`` scale of
+    0.1 saturates S2M's ResNet-50 and f-BRS's HRNet (every probability 0 or
+    1)."""
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                bound = float(m.weight[0].numel()) ** -0.5
+                m.weight.uniform_(-bound, bound, generator=gen)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_parameters()
+    return model.eval()
+
+
+def interactive_models(dev):
+    """f-BRS at ``FbrsConfig()`` (HRNet-18s, OCR 64), S2M DeepLabV3+
+    ResNet-50 and XMem at ``XMemConfig()``. The class heads of f-BRS (x10)
+    and S2M (x100) spread the untrained logits, which otherwise sit within
+    0.05 of 0 and leave every pixel's label to rounding."""
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.fbrs import model as fm
+    from d3fields_tpu_torch.models.s2m import model as s2
+
+    fmodel = default_scale(fm.FbrsModel(fm.FbrsConfig(), device=dev), 2)
+    with torch.no_grad():
+        fmodel.feature_extractor.cls_head.weight.mul_(10.0)
+    smodel = default_scale(s2.S2M(device=dev), 3)
+    with torch.no_grad():
+        smodel.classifier.classifier[3].weight.mul_(100.0)
+    return fmodel, smodel, xmem_model(dev, XMemConfig(), seed=5)
+
+
+def hold_fbrs_s2m(dev, fmodel, smodel, rgb: np.ndarray, prev_mask: np.ndarray) -> dict:
+    """On the card against the CPU: the f-BRS forward logits of a flipped
+    pair with two clicks, one BRS loss and gradient at a fixed (scale, bias)
+    over the card's cached features, and S2M's probabilities at one
+    scribble."""
+    import copy
+
+    from d3fields_tpu_torch.interact.session import _draw_path
+    from d3fields_tpu_torch.models.common import IMAGENET_MEAN, IMAGENET_STD
+    from d3fields_tpu_torch.models.fbrs import predictor as fp
+    from d3fields_tpu_torch.models.s2m import S2MController
+
+    img = ((rgb.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+    H, W = img.shape[:2]
+    x = torch.from_numpy(img).permute(2, 0, 1)[None]
+    x = torch.cat([x, x.flip(-1)])
+    pts = torch.tensor([[[190.0, 440.0], [300.0, 600.0]], [[190.0, W - 441.0], [300.0, W - 601.0]]])
+    cpu_f = copy.deepcopy(fmodel).cpu()
+    with torch.no_grad():
+        card = fmodel(x.to(dev), pts.to(dev)).cpu().numpy()
+        ref = cpu_f(x, pts).numpy()
+        feats = fmodel.backbone_feats(x.to(dev), pts.to(dev))
+    scale = float(np.abs(ref).max())
+    row = {"fbrs_logit_scale": scale, "fbrs_logit_rel_err": max_err(card, ref) / scale}
+    clicks = [fp.Click(True, (190.0, 440.0)), fp.Click(False, (300.0, 600.0))]
+    pos, neg = fp._click_masks(clicks, (H, W))
+    pos = torch.from_numpy(np.concatenate([pos, pos[:, :, ::-1]]))
+    neg = torch.from_numpy(np.concatenate([neg, neg[:, :, ::-1]]))
+    sb = np.random.RandomState(0).normal(0, 0.05, 2 * fmodel.cfg.backbone.feats_channels)
+    out = {}
+    for name, model, d in (("card", fmodel, dev), ("cpu", cpu_f, torch.device("cpu"))):
+        pred = fp.FbrsPredictor(model, device=d)
+        pred.input_data = feats.to(d)
+        loss, grad = pred.val_grad(sb, pos.to(d), neg.to(d), (H, W))[:2]
+        out[name] = (float(loss), grad.cpu().numpy())
+    gscale = float(np.abs(out["cpu"][1]).max())
+    row.update({"brs_loss": [out["card"][0], out["cpu"][0]],
+                "brs_loss_rel_err": abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0]),
+                "brs_grad_scale": gscale,
+                "brs_grad_rel_err": max_err(out["card"][1], out["cpu"][1]) / gscale})
+    scr = _draw_path(np.full((H, W), 255, np.uint8), [(420, 180), (440, 190), (470, 200)], 1, 3)
+    scr = _draw_path(scr, [(100, 400), (200, 420)], 0, 3)
+    card_p = S2MController(smodel, 1, device=dev).interact(img, prev_mask, scr)
+    cpu_p = S2MController(copy.deepcopy(smodel).cpu(), 1, device="cpu").interact(img, prev_mask,
+                                                                                   scr)
+    row["s2m_max_abs_err"] = max_err(card_p, cpu_p)
+    row["s2m_prob_range"] = [float(cpu_p.min()), float(cpu_p.max())]
+    for k in ("fbrs_logit_rel_err", "brs_loss_rel_err", "brs_grad_rel_err"):
+        check(row[k] <= FBRS_HOLD_REL, f"interactive {k}: {row}")
+    check(row["s2m_max_abs_err"] <= S2M_HOLD_ATOL, f"interactive S2M card vs CPU: {row}")
+    return row
+
+
+def interactive(dev) -> dict:
+    """``apps/interactive.py`` at full width: f-BRS (HRNet-18s, OCR 64), S2M
+    (DeepLabV3+ ResNet-50) and XMem (``XMemConfig()``) from checkpoints in
+    the reference layouts, a 24-frame 480x854 uncompressed AVI through
+    ``--video`` at ``--size 480``. The first script: a free stroke, three
+    f-BRS clicks (BRS and the zoom-in from the second), undo, a scribble,
+    commit, ``propagate forward``, an RGBA layer enlarged to the frame, the
+    five overlays, save; the second run resumes from the saved masks and
+    propagates backward. Timed: f-BRS per click with its L-BFGS evaluation
+    count, a NoBRS forward, S2M per scribble, XMem per propagated frame,
+    each run's wall; held: ``hold_fbrs_s2m``, and each run's saved masks
+    equal to the session's."""
+    import io
+    import shutil
+
+    from d3fields_tpu_torch.apps import interactive as app
+    from d3fields_tpu_torch.interact import InteractiveSession
+    from d3fields_tpu_torch.models.fbrs.predictor import FBRSController
+    from d3fields_tpu_torch.models.s2m import S2MController
+    from d3fields_tpu_torch.utils.avi import AviWriter
+    from d3fields_tpu_torch.utils.png import read_png, save_png
+
+    shutil.rmtree(IA_DIR, ignore_errors=True)
+    os.makedirs(IA_DIR)
+    video = os.path.join(IA_DIR, "clip.avi")
+    t0 = time.perf_counter()
+    with AviWriter(video) as w:
+        for t in range(EVAL_FRAMES):
+            w.write(eval_frame(EVAL_DRIFTS["vid_1"], t)["color"][0])
+    layer = os.path.join(IA_DIR, "layer.png")
+    lay = np.random.RandomState(0).randint(0, 256, (240, 427, 3)).astype(np.uint8)
+    save_png(layer, lay)
+    write_seconds = time.perf_counter() - t0
+    fmodel, smodel, xmodel = interactive_models(dev)
+    ckpt = {"fbrs": os.path.join(IA_DIR, "fbrs.pth"), "s2m": os.path.join(IA_DIR, "s2m.pth"),
+            "xmem": os.path.join(IA_DIR, "XMem.pth")}
+    for name, m in (("fbrs", fmodel), ("s2m", smodel), ("xmem", xmodel)):
+        torch.save({k: v.cpu() for k, v in m.state_dict().items()}, ckpt[name])
+    del xmodel
+    ws, out = os.path.join(IA_DIR, "ws"), os.path.join(IA_DIR, "out")
+    os.makedirs(out)
+    base = ["--video", video, "--workspace", ws, "--size", "480", "--num_objects", "1",
+            "--fbrs_ckpt", ckpt["fbrs"], "--s2m_ckpt", ckpt["s2m"], "--xmem_ckpt", ckpt["xmem"],
+            *XMEM_WIDTH_ARGS]
+    clicks, saved, runs, counts = [], [], {}, {}
+
+    def interact(self, image, x, y, is_positive):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask = interact_orig(self, image, x, y, is_positive)
+        clicks.append({"ms": (time.perf_counter() - t0) * 1e3,
+                       "evaluations": self.predictor.evaluations,
+                       "zoom_in": self.predictor.zoom_in._object_roi is not None})
+        return mask
+
+    def save_masks(self, out_dir, names=None):
+        saved.append((out_dir, list(names), self.masks.copy(), self._mask_known.copy()))
+        return save_orig(self, out_dir, names)
+
+    interact_orig, save_orig = FBRSController.interact, InteractiveSession.save_masks
+    times = {}
+    try:
+        with mock.patch.object(FBRSController, "interact", interact), \
+                mock.patch.object(InteractiveSession, "save_masks", save_masks), \
+                timed_function(S2MController, "interact", times), \
+                timed_function(InteractiveSession, "_xmem_step", times):
+            for name, script in (("first", IA_SCRIPT.format(layer=layer, out=out)),
+                                 ("resume", f"goto {EVAL_FRAMES - 1}\npropagate backward\nsave\n")):
+                path = os.path.join(IA_DIR, f"{name}.txt")
+                with open(path, "w") as f:
+                    f.write(script)
+                n_saved, n_steps = len(saved), len(times.get("_xmem_step", []))
+                stdout = io.StringIO()
+                with contextlib.redirect_stdout(stdout):
+                    t0 = time.perf_counter()
+                    code, counts[name] = reset_and_count(
+                        lambda: app.main(base + ["--script", path], device=dev))
+                    wall = time.perf_counter() - t0
+                check(code == 0, f"interactive {name} exited with an error")
+                check(sum(counts[name].values()) == 0, f"interactive {name} launched {counts}")
+                for out_dir, names, masks, known in saved[n_saved:]:
+                    for t, n in enumerate(names):
+                        if known[t]:
+                            m = read_png(os.path.join(out_dir, n))
+                            check(np.array_equal(m, masks[t]),
+                                  f"interactive {name}: {n} differs from the session's mask")
+                runs[name] = {"wall_seconds": wall, "xmem_steps": len(times["_xmem_step"]) - n_steps,
+                              "log": stdout.getvalue().splitlines()}
+    finally:
+        for path in ckpt.values():
+            os.remove(path)
+    masks = sorted(os.listdir(os.path.join(ws, "masks")))
+    check(masks == [f"{t:07d}.png" for t in range(EVAL_FRAMES)], f"interactive masks {masks}")
+    check(saved[-1][3].all(), "the resumed run left frames without a mask")
+    for m in ("davis", "fade", "light", "popup", "layered"):
+        v = read_png(os.path.join(out, f"{m}.png"))
+        check(v.shape == EVAL_HW + (3,), f"interactive vis {m}: {v.shape}")
+    check(len(clicks) == 3 and clicks[0]["evaluations"] == 0
+          and all(c["evaluations"] >= 1 and c["zoom_in"] for c in clicks[1:]),
+          f"interactive f-BRS clicks: {clicks}")
+
+    from d3fields_tpu_torch.utils.png import imread_color
+
+    frame0 = os.path.join(ws, "images", "0000000.png")
+    rgb = np.ascontiguousarray(imread_color(frame0)[..., ::-1])
+    hold = hold_fbrs_s2m(dev, fmodel, smodel, rgb, read_png(os.path.join(ws, "masks",
+                                                                           "0000000.png")))
+    x = torch.randn(2, 3, *EVAL_HW, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    pts = torch.tensor([[[190.0, 440.0], [-1.0, -1.0]]] * 2, device=dev)
+    with torch.no_grad():
+        nobrs_ms = cuda_ms(lambda: fmodel(x, pts), reps=5, warmup=2, windows=3)
+    del fmodel, smodel
+    torch.cuda.empty_cache()
+    steps = times["_xmem_step"]
+    emit({"phase": "interactive", "video_hw": list(EVAL_HW), "frames": EVAL_FRAMES, "size": 480,
+          "models": {"fbrs": "FbrsConfig(): HRNet-18s, OCR 64", "s2m": "DeepLabV3+ ResNet-50",
+                     "xmem": "XMemConfig()"},
+          "write_seconds": write_seconds, "fbrs_clicks": clicks, "nobrs_forward_ms": nobrs_ms,
+          "s2m_ms": times["interact"], "propagation_ms_per_frame": steps,
+          "propagation_ms_median": float(np.median(steps)), "runs": runs,
+          "card_vs_cpu": hold, "fbrs_hold_rel": FBRS_HOLD_REL, "s2m_hold_atol": S2M_HOLD_ATOL,
+          "launches": counts})
+    shutil.rmtree(IA_DIR, ignore_errors=True)
+    return {k: sum(c[k] for c in counts.values()) for k in counts["first"]}
 
 
 def main() -> int:
@@ -2431,7 +2822,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("eval_xmem")
     by_path["train_xmem"] = train_xmem(dev)
+    torch.cuda.empty_cache()
     lap("train_xmem")
+    by_path["click_track"] = click_track(dev)
+    torch.cuda.empty_cache()
+    lap("click_track")
+    by_path["interactive"] = interactive(dev)
+    lap("interactive")
     emit({"phase": "phase_seconds", **wall, "total": time.perf_counter() - t0})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

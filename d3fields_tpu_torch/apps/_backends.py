@@ -8,7 +8,11 @@ environment variables and errors. Checkpoint sources:
 - GroundingDINO: a huggingface ``GroundingDinoForObjectDetection`` state
   dict (``D3F_GDINO_CKPT``) and a BERT vocab file (``D3F_BERT_VOCAB``);
 - XMem: the reference's ``XMem.pth`` (``D3F_XMEM_CKPT``) for video mask
-  propagation (without it, the tracking app re-detects every frame).
+  propagation (without it, the tracking app re-detects every frame);
+- f-BRS and S2M, the interactive tools' click and scribble models: the
+  reference's ``fbrs.pth`` (an HRNet-OCR ``DistMapsHRNetModel``, its
+  widths read from the state dict) and ``s2m.pth`` (``D3F_FBRS_CKPT``,
+  ``D3F_S2M_CKPT``, read by ``apps/interactive.py``).
 
 A torch file loads with ``torch.load`` into the port's modules, which keep
 the checkpoints' parameter names, after :func:`audit_state_dict` has
@@ -137,6 +141,28 @@ def load_xmem(path: str, cfg, device):
         # converter's pad, d3fields_tpu/models/xmem/network.py:337-342)
         sd["value_encoder.conv1.weight"] = torch.cat([w, torch.zeros_like(w[:, :1])], dim=1)
     model.load_state_dict(audit_state_dict(model, sd, "xmem"), strict=True)
+    return model.eval()
+
+
+def load_fbrs(path: str, device):
+    """An f-BRS click model from the reference's ``fbrs.pth`` (width, OCR
+    width and ``small`` read from it, ``model.detect_config``)."""
+    from d3fields_tpu_torch.models.fbrs import model as F
+
+    sd = _load_torch_sd(path)
+    model = F.FbrsModel(F.detect_config(sd), device=device)
+    model.load_state_dict(audit_state_dict(model, sd, "fbrs"), strict=True)
+    return model.eval()
+
+
+def load_s2m(path: str, device):
+    """The S2M scribble model from the reference's ``s2m.pth`` or a JAX ``.npz``."""
+    from d3fields_tpu_torch.models.s2m import model as S
+
+    model = S.S2M(device=device)
+    if path.endswith(".npz"):
+        return S.load_jax_params(model, load_params(path)[0]).eval()
+    model.load_state_dict(audit_state_dict(model, _load_torch_sd(path), "s2m"), strict=True)
     return model.eval()
 
 

@@ -172,14 +172,24 @@ def bilinear_resize_exact(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.T
     return out.permute(0, 2, 3, 1)
 
 
-def _cv2_linear_taps(ssize: int, dsize: int, clamp: bool):
+def _cv2_linear_taps(ssize: int, dsize: int, clamp: bool, area: bool = False):
     """OpenCV's INTER_LINEAR taps and 11-bit weights along one axis:
     fx = float32((d + 0.5) * scale - 0.5), split at its floor. Along x an
     out-of-range tap takes the edge pixel at weight 1 (``clamp``); along y
-    the weights stay and only the row indices are clipped."""
-    f = ((np.arange(dsize) + 0.5) * (1.0 / (dsize / ssize)) - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = (f - s.astype(np.float32)).astype(np.float32)
+    the weights stay and only the row indices are clipped. ``area`` gives
+    the taps OpenCV's INTER_AREA takes when it enlarges: s = floor(d *
+    scale), fx = (d + 1) - (s + 1) / scale, its fractional part where it
+    is positive and 0 elsewhere."""
+    inv = dsize / ssize
+    if area:
+        d = np.arange(dsize)
+        s = np.floor(d * (1.0 / inv)).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        f = ((np.arange(dsize) + 0.5) * (1.0 / inv) - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = (f - s.astype(np.float32)).astype(np.float32)
     if clamp:
         edge = (s < 0) | (s >= ssize - 1)
         f[edge] = 0.0
@@ -189,13 +199,15 @@ def _cv2_linear_taps(ssize: int, dsize: int, clamp: bool):
     return np.clip(s, 0, ssize - 1), np.clip(s + 1, 0, ssize - 1), w0, w1
 
 
-def linear_resize_u8(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+def linear_resize_u8(img: np.ndarray, out_hw: tuple[int, int], area: bool = False) -> np.ndarray:
     """``cv2.resize(img, (w, h))`` of an (H, W) or (H, W, C) uint8 image:
     each row's two taps in integers, then the two rows combined as OpenCV's
-    vector path does, ``((b0 (r0 >> 4)) >> 16 + (b1 (r1 >> 4)) >> 16 + 2) >> 2``."""
+    vector path does, ``((b0 (r0 >> 4)) >> 16 + (b1 (r1 >> 4)) >> 16 + 2) >> 2``.
+    ``area`` takes INTER_AREA's taps for a resize that enlarges along
+    either axis (``_cv2_linear_taps``)."""
     h, w = out_hw
-    x0, x1, a0, a1 = _cv2_linear_taps(img.shape[1], w, clamp=True)
-    y0, y1, b0, b1 = _cv2_linear_taps(img.shape[0], h, clamp=False)
+    x0, x1, a0, a1 = _cv2_linear_taps(img.shape[1], w, clamp=True, area=area)
+    y0, y1, b0, b1 = _cv2_linear_taps(img.shape[0], h, clamp=False, area=area)
     s = img.astype(np.int64)
     col = (1, w) + (1,) * (img.ndim - 2)
     rows = s[:, x0] * a0.reshape(col) + s[:, x1] * a1.reshape(col)

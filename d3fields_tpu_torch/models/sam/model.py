@@ -1,4 +1,4 @@
-"""Segment Anything (SAM) in PyTorch: the box-prompted path.
+"""Segment Anything (SAM) in PyTorch: box, point and mask prompts.
 
 Counterpart of ``d3fields_tpu/models/sam/model.py``. :class:`Sam` keeps the
 parameter names of huggingface ``SamModel``, so its state dict loads with
@@ -11,13 +11,12 @@ weights as the JAX package's ``random_params_direct`` does.
   positions, and the two-convolution neck with channel layer norms.
 - :meth:`Sam.decode_boxes` embeds box prompts and runs the two-way mask
   decoder for every box of every view in one batch.
+- :meth:`Sam.decode_points` does the same for click prompts, with one
+  not-a-point entry appended to each prompt as upstream SAM appends it, and
+  optionally a low-res mask prompt per row (:meth:`Sam.embed_mask_dense`),
+  the iterative refinement of upstream SAM's ``mask_input``.
 - Layouts are NHWC, as in the JAX package. Patch embedding and the
   decoder's 2x2 transposed convolutions are matrix products.
-
-Point and mask prompts (``embed_points``, ``embed_mask_dense``,
-``sam_decode_points``) are not ported yet; their parameters
-(``prompt_encoder.point_embed.{0,1}``, ``not_a_point_embed``,
-``mask_embed``) load with the rest and are unused.
 """
 
 from __future__ import annotations
@@ -372,10 +371,40 @@ class Sam(nn.Module):
         pt = self.prompt_encoder.point_embed
         return torch.stack([emb[:, 0] + pt[2].weight[0], emb[:, 1] + pt[3].weight[0]], dim=1)
 
+    def embed_points(self, points: Tensor, labels: Tensor, pad: bool = True) -> Tensor:
+        """points (N, P, 2) xy in model-input pixels, labels (N, P) in {1
+        foreground, 0 background, -1 not a point} -> sparse embeddings
+        (N, P + pad, C): pixel-centre shift, Fourier encoding, the
+        not-a-point embedding where the label is -1, the label's embedding
+        added otherwise. ``pad`` appends one not-a-point entry, as upstream
+        SAM does when no box comes with the points."""
+        if pad:
+            points = torch.cat([points, points.new_zeros(points.shape[0], 1, 2)], dim=1)
+            labels = torch.cat([labels, labels.new_full((labels.shape[0], 1), -1)], dim=1)
+        pe = self.prompt_encoder
+        emb = pe.shared_embedding((points + 0.5) / self.cfg.image_size)
+        lab = labels[..., None]
+        emb = torch.where(lab == -1, pe.not_a_point_embed.weight[0], emb)
+        emb = torch.where(lab == 0, emb + pe.point_embed[0].weight[0], emb)
+        return torch.where(lab == 1, emb + pe.point_embed[1].weight[0], emb)
+
+    def embed_mask_dense(self, mask_logits: Tensor) -> Tensor:
+        """Low-res mask logits (N, 4s, 4s) -> per-prompt dense embeddings
+        (N, s, s, C): stride-2 conv, layer norm, exact GELU, stride-2 conv,
+        layer norm, exact GELU, 1x1 conv (upstream SAM's
+        ``mask_downscaling``)."""
+        me = self.prompt_encoder.mask_embed
+        x = F.conv2d(mask_logits[:, None], me.conv1.weight, me.conv1.bias, stride=2)
+        x = F.gelu(me.layer_norm1(x.permute(0, 2, 3, 1)), approximate="none")
+        x = F.conv2d(x.permute(0, 3, 1, 2), me.conv2.weight, me.conv2.bias, stride=2)
+        x = F.gelu(me.layer_norm2(x.permute(0, 2, 3, 1)), approximate="none")
+        return F.conv2d(x.permute(0, 3, 1, 2), me.conv3.weight, me.conv3.bias).permute(0, 2, 3, 1)
+
     def mask_decoder_forward(self, image_emb: Tensor, image_pe: Tensor, sparse: Tensor,
                              dense: Tensor, multimask_output: bool = True):
         """image_emb (N, h, w, C), one per prompt; sparse (N, T, C); dense
-        (h, w, C). Returns (masks (N, M, 4h, 4w), iou (N, M))."""
+        (h, w, C), or (N, h, w, C) one per prompt. Returns (masks (N, M, 4h,
+        4w), iou (N, M))."""
         md, cfg = self.mask_decoder, self.cfg
         N, h, w, C = image_emb.shape
         nm = cfg.num_multimask_outputs + 1
@@ -413,6 +442,22 @@ class Sam(nn.Module):
         dense = self.prompt_encoder.no_mask_embed.weight[0].expand(size, size, -1)
         return self.mask_decoder_forward(image_embs, self.image_wide_positional_embedding(),
                                          self.embed_boxes(boxes), dense, multimask_output)
+
+    def decode_points(self, image_embs: Tensor, points: Tensor, labels: Tensor,
+                      multimask_output: bool = True, mask_input: Optional[Tensor] = None):
+        """Click prompts: image_embs (N, h, w, C), the embedding each prompt
+        is decoded against; points (N, P, 2) xy in model-input pixels;
+        labels (N, P) in {1, 0, -1} -> (low_res_masks (N, M, 4h, 4w), iou
+        (N, M)). ``mask_input`` (N, 4h, 4w), a previous decode's low-res
+        logits, one row per prompt, refines the masks."""
+        if mask_input is not None:
+            dense = self.embed_mask_dense(mask_input)
+        else:
+            size = self.cfg.grid
+            dense = self.prompt_encoder.no_mask_embed.weight[0].expand(size, size, -1)
+        return self.mask_decoder_forward(image_embs, self.image_wide_positional_embedding(),
+                                         self.embed_points(points, labels), dense,
+                                         multimask_output)
 
 
 # ---------------------------------------------------------------------------

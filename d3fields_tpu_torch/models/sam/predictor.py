@@ -10,6 +10,10 @@ it runs on the device; the masks come back as bool tensors.
 :meth:`SamPredictor.set_images` encodes a whole rig in one batch and
 :meth:`SamPredictor.predict_boxes_views` decodes every view's boxes in one
 batch, each box against its own view's embedding.
+:meth:`SamPredictor.predict_points` decodes click prompts (upstream
+``predict(point_coords=..., point_labels=..., mask_input=...)``). Unlike
+the JAX predictor it pads neither the click count nor the prompt count to a
+bucket: pad clicks join the decoder's token attention and move its output.
 """
 
 from __future__ import annotations
@@ -104,6 +108,41 @@ class SamPredictor:
         if self._image_embs is None or self._image_embs.shape[0] != 1:
             raise RuntimeError("call set_image first")
         return self.predict_boxes_views([boxes_xyxy])[0]
+
+    def predict_points(self, points_xy, labels, multimask_output: bool = True,
+                       mask_input=None):
+        """Click prompts on the image of :meth:`set_image`: points (N, P, 2)
+        xy in original-image pixels, labels (N, P) in {1 foreground, 0
+        background, -1 not a point} -> (masks bool (N, M, H, W), iou (N, M),
+        low_res (N, M, s, s) logits) on the device. ``mask_input`` (N, s, s),
+        exactly one low-res logit map per prompt (a previous call's third
+        return), refines the masks."""
+        if self._image_embs is None or self._image_embs.shape[0] != 1:
+            raise RuntimeError("call set_image first")
+        H, W = self._orig_hw
+        rh, rw = self._resized_hw
+        pts = np.array(points_xy, np.float32)
+        if pts.ndim == 2:
+            pts = pts[None]
+        lbl = np.asarray(labels, np.int64).reshape(pts.shape[:2])
+        n = pts.shape[0]
+        pts[..., 0] *= rw / W
+        pts[..., 1] *= rh / H
+        mi = None
+        if mask_input is not None:
+            mi = torch.as_tensor(mask_input, dtype=torch.float32, device=self.device)
+            if mi.dim() == 2:
+                mi = mi[None]
+            if mi.shape[0] != n:
+                raise ValueError(f"mask_input has {mi.shape[0]} rows for {n} prompts — pass "
+                                 "exactly one low-res logit map per prompt")
+        embs = self._image_embs.expand(n, -1, -1, -1)
+        with torch.no_grad():
+            low_res, iou = self.model.decode_points(
+                embs, torch.as_tensor(pts, device=self.device),
+                torch.as_tensor(lbl, device=self.device), multimask_output, mask_input=mi)
+            masks = self._postprocess(low_res) > 0.0
+        return masks, iou, low_res
 
     def _postprocess(self, low_res: Tensor) -> Tensor:
         """(N, M, s, s) mask logits -> (N, M, H, W): upscale to the model

@@ -31,7 +31,7 @@ import torch
 #:   ``model.decoder.bbox_embed`` / ``bbox_embed.{i>0}``: huggingface ties
 #:   every box head to ``bbox_embed.0``; ``position_ids``: an arange buffer
 #:   older transformers serialised;
-#: - xmem ``num_batches_tracked``: batch-norm step counters.
+#: - xmem, s2m and fbrs ``num_batches_tracked``: batch-norm step counters.
 ALLOWED_UNUSED = {
     "dinov2_hub": [r"mask_token"],
     "sam": [r"^prompt_encoder\.shared_embedding\."],
@@ -42,6 +42,8 @@ ALLOWED_UNUSED = {
         r"position_ids",
     ],
     "xmem": [r"num_batches_tracked"],
+    "s2m": [r"num_batches_tracked"],
+    "fbrs": [r"num_batches_tracked"],
 }
 
 

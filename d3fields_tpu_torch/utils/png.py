@@ -12,7 +12,9 @@ give what ``cv2.imread`` gives:
   8-bit greyscale file as stored, a colour one through libpng's
   ``rgb_to_gray`` with OpenCV's coefficients (0.299, 0.587);
 - :func:`imread_anydepth` is ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` of a
-  greyscale file: (H, W) uint8 or uint16.
+  greyscale file: (H, W) uint8 or uint16;
+- :func:`imread_rgba` is Pillow's ``Image.open(path).convert("RGBA")`` of
+  an RGB, RGBA, greyscale or paletted file without a transparency chunk.
 
 An indexed-colour (paletted) file at 1, 2, 4 or 8 bits reads as its
 palette indices, (H, W) uint8, as ``np.array(Image.open(path))`` gives a
@@ -80,9 +82,10 @@ def _unpack_indices(rows: np.ndarray, depth: int, W: int) -> np.ndarray:
     return (groups * weights).sum(-1).astype(np.uint8)
 
 
-def _read_png(path: str):
+def _read_png(path: str, allow_trns: bool = True):
     """The samples of a PNG file as stored, and its palette ((n, 3) uint8
-    RGB, or None)."""
+    RGB, or None). ``allow_trns=False`` raises on a transparency (tRNS)
+    chunk, which the readers here otherwise ignore as ``cv2.imread`` does."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
@@ -101,6 +104,8 @@ def _read_png(path: str):
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"tRNS" and not allow_trns:
+            raise ValueError(f"{path}: a PNG with a transparency (tRNS) chunk is not supported")
         elif kind == b"IEND":
             break
     if header is None or not idat:
@@ -150,6 +155,22 @@ def imread_color(path: str) -> np.ndarray:
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=2)
     return np.ascontiguousarray(img[..., 2::-1])  # RGB(A) -> BGR, alpha dropped
+
+
+def imread_rgba(path: str) -> np.ndarray:
+    """``np.array(Image.open(path).convert("RGBA"))`` of an 8-bit PNG: (H,
+    W, 4) uint8 RGBA. RGB, greyscale and paletted pixels take alpha 255; a
+    file with a transparency (tRNS) chunk raises."""
+    img, palette = _read_png(path, allow_trns=False)
+    if palette is not None:
+        img = palette[img]
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: a 16-bit PNG is not read as an RGBA image here")
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    if img.shape[2] == 4:
+        return np.ascontiguousarray(img)
+    return np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=2)
 
 
 def imread_anydepth(path: str) -> np.ndarray:

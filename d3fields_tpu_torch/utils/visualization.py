@@ -6,10 +6,12 @@ matplotlib or Pillow:
 
 - :func:`draw_keypoints` fills each disc as ``cv2.circle(img, c, r, color,
   -1)`` does (OpenCV's midpoint ``Circle`` with LINE_8), pixel for pixel,
-  clipped at the image border;
+  clipped at the image border; :func:`draw_line` draws ``cv2.line`` at any
+  thickness, pixel for pixel (the interactive tools' strokes);
 - :class:`TrackVis` shrinks each view with :func:`resize_area_u8`, OpenCV's
-  ``INTER_AREA`` tables in float32 and its integer path at integer scales
-  (equal to ``cv2.resize`` at the shapes the tests hold);
+  ``INTER_AREA`` tables in float32 and its integer path at integer scales,
+  and its fixed-point linear path where it enlarges (equal to
+  ``cv2.resize`` at the shapes the tests hold);
 - :class:`TrackVis` writes ``tracking.avi``, uncompressed 24-bit frames
   (:mod:`d3fields_tpu_torch.utils.avi`), where the JAX package writes an
   mp4v ``tracking.mp4`` with ``cv2.VideoWriter``: the port has no video
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from d3fields_tpu_torch.models.resize import linear_resize_u8
 from d3fields_tpu_torch.ops.pointcloud_native import statistical_outlier_mask
 from d3fields_tpu_torch.track.keypoints import project_to_view
 from d3fields_tpu_torch.utils.avi import AviWriter
@@ -77,6 +80,181 @@ def _fill_disc(img: np.ndarray, cx: int, cy: int, radius: int, color) -> None:
         minus -= mask & 2
 
 
+XY_SHIFT = 16  # OpenCV's drawing fixed point
+XY_ONE = 1 << XY_SHIFT
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division, truncated toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip_line(W: int, H: int, x1: int, y1: int, x2: int, y2: int):
+    """OpenCV's ``clipLine`` on a W x H rectangle at the origin: the
+    segment's ends moved onto the rectangle's border along the segment, in
+    int64 with truncated double quotients, or None when it misses."""
+    right, bottom = W - 1, H - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return None if c1 | c2 else (x1, y1, x2, y2)
+
+
+def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, value) -> None:
+    """A one-pixel line: OpenCV's 8-connected ``LineIterator`` (clipped to
+    the image, walked left to right)."""
+    H, W = img.shape[:2]
+    if not (0 <= x1 < W and 0 <= x2 < W and 0 <= y1 < H and 0 <= y2 < H):
+        clipped = _clip_line(W, H, x1, y1, x2, y2)
+        if clipped is None:
+            return
+        x1, y1, x2, y2 = clipped
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy, sy = x2 - x1, abs(y2 - y1), 1 if y2 >= y1 else -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = x1, y1
+    for _ in range(dx + 1):
+        img[y, x] = value
+        if err < 0:  # a diagonal step
+            err += 2 * (dx - dy)
+            x, y = x + 1, y + sy
+        else:
+            err -= 2 * dy
+            x, y = (x, y + sy) if vert else (x + 1, y)
+
+
+def _line_fixed(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, value) -> None:
+    """OpenCV's ``Line2``: a one-pixel line between 16.16 fixed-point ends,
+    clipped to the image scaled by XY_ONE."""
+    H, W = img.shape[:2]
+    clipped = _clip_line(W << XY_SHIFT, H << XY_SHIFT, x1, y1, x2, y2)
+    if clipped is None:
+        return
+    x1, y1, x2, y2 = clipped
+    dx, dy = x2 - x1, y2 - y1
+    major_x = abs(dx) > abs(dy)
+    if (dx if major_x else dy) < 0:
+        x1, y1, x2, y2, dx, dy = x2, y2, x1, y1, -dx, -dy
+    half = XY_ONE >> 1
+    k = np.arange(((x2 - x1) if major_x else (y2 - y1)) // XY_ONE + 1, dtype=np.int64)
+    if major_x:
+        xs = ((x1 + half) >> XY_SHIFT) + k
+        ys = (y1 + half + k * _tdiv(dy << XY_SHIFT, abs(dx) | 1)) >> XY_SHIFT
+    else:
+        xs = (x1 + half + k * _tdiv(dx << XY_SHIFT, abs(dy) | 1)) >> XY_SHIFT
+        ys = ((y1 + half) >> XY_SHIFT) + k
+    xs = np.append(xs, (x2 + half) >> XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> XY_SHIFT)
+    keep = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    img[ys[keep], xs[keep]] = value
+
+
+def _fill_convex_poly(img: np.ndarray, v, value) -> None:
+    """OpenCV's ``FillConvexPoly`` with LINE_8 and 16.16 fixed-point
+    vertices ``v``: the outline's fixed-point lines, then the scanlines
+    between the two edge walkers."""
+    H, W = img.shape[:2]
+    n, delta = len(v), XY_ONE >> 1
+    (px, py), imin = v[-1], 0
+    ymin = ymax = v[0][1]
+    xmin = xmax = v[0][0]
+    for i, (x, y) in enumerate(v):
+        if y < ymin:
+            ymin, imin = y, i
+        ymax, xmax, xmin = max(ymax, y), max(xmax, x), min(xmin, x)
+        _line_fixed(img, px, py, x, y, value)
+        px, py = x, y
+    xmin, xmax = (xmin + delta) >> XY_SHIFT, (xmax + delta) >> XY_SHIFT
+    ymin, ymax = (ymin + delta) >> XY_SHIFT, (ymax + delta) >> XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= W or ymin >= H:
+        return
+    ymax = min(ymax, H - 1)
+    idx_, di_, x_, dx_, ye_ = [imin, imin], [1, n - 1], [-XY_ONE, -XY_ONE], [0, 0], [ymin, ymin]
+    edges, y = n, ymin
+    while True:
+        for i in range(2):
+            if y < ye_[i]:
+                continue
+            idx0, di = idx_[i], di_[i]
+            idx = (idx0 + di) % n
+            while True:  # for (; edges-- > 0; )
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[idx][1] + delta) >> XY_SHIFT
+                if ty > y:
+                    xs, xe = v[idx0][0], v[idx][0]
+                    ye_[i], x_[i], idx_[i] = ty, xs, idx
+                    dx_[i] = _tdiv((xe - xs) * 2 + (ty - y), 2 * (ty - y))
+                    break
+                idx0, idx = idx, (idx + di) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            xx1, xx2 = ((min(x_) + delta) >> XY_SHIFT, (max(x_) + delta) >> XY_SHIFT)
+            if xx2 >= 0 and xx1 < W:
+                img[y, max(xx1, 0):min(xx2, W - 1) + 1] = value
+        x_[0] += dx_[0]
+        x_[1] += dx_[1]
+        y += 1
+        if y > ymax:
+            break
+
+
+def draw_line(img: np.ndarray, p0, p1, value, thickness: int = 1) -> np.ndarray:
+    """``cv2.line(img, p0, p1, value, thickness)`` (LINE_8, integer ends)
+    in place, pixel for pixel as OpenCV 5.0 draws it: at thickness 1 the
+    8-connected line; thicker, the segment clipped to the image grown by
+    ``thickness`` on every side, then the 16.16 fixed-point quadrilateral
+    around it and a filled disc of radius ``(thickness + 1) // 2`` at each
+    end (round caps; a zero-length line is the disc alone)."""
+    (x0, y0), (x1, y1) = (tuple(int(c) for c in p) for p in (p0, p1))
+    if thickness <= 1:
+        _line8(img, x0, y0, x1, y1, value)
+        return img
+    H, W = img.shape[:2]
+    t = thickness
+    clipped = _clip_line(W + 2 * t, H + 2 * t, x0 + t, y0 + t, x1 + t, y1 + t)
+    if clipped is None:
+        return img
+    x0, y0, x1, y1 = ((c - t) << XY_SHIFT for c in clipped)
+    dx, dy = (x0 - x1) / XY_ONE, (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    half_width = t << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half_width + (t & 1) * XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = round(dy * r), round(dx * r)  # cvRound: half to even
+        _fill_convex_poly(img, [(x0 + ox, y0 + oy), (x0 - ox, y0 - oy),
+                                (x1 - ox, y1 - oy), (x1 + ox, y1 + oy)], value)
+    radius = (half_width + (XY_ONE >> 1)) >> XY_SHIFT
+    for cx, cy in ((x0, y0), (x1, y1)):
+        _fill_disc(img, (cx + (XY_ONE >> 1)) >> XY_SHIFT, (cy + (XY_ONE >> 1)) >> XY_SHIFT,
+                   radius, value)
+    return img
+
+
 def draw_keypoints(img_bgr: np.ndarray, uv: np.ndarray,
                    colors: Optional[np.ndarray] = None,
                    radius: int = 4) -> np.ndarray:
@@ -124,14 +302,17 @@ def _area_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def resize_area_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` of an
-    (H, W, C) uint8 image to a smaller size: the area tables of OpenCV's
-    generic path, each row's taps and then each column's summed in float32
-    in OpenCV's order, rounded half to even. At integer scales, OpenCV's
-    fast path: block sums in integers, 2x2 blocks rounded half up."""
+    (H, W) or (H, W, C) uint8 image. A shrink along both axes takes the
+    area tables of OpenCV's generic path, each row's taps and then each
+    column's summed in float32 in OpenCV's order, rounded half to even; at
+    integer scales, OpenCV's fast path: block sums in integers, 2x2 blocks
+    rounded half up. A resize that enlarges along either axis is OpenCV's
+    fixed-point linear resize with the area taps
+    (``models/resize.py::linear_resize_u8(..., area=True)``)."""
     H, W = img.shape[:2]
     h, w = out_hw
     if h > H or w > W:
-        raise ValueError(f"resize_area_u8 shrinks; {H}x{W} -> {h}x{w} is not a shrink")
+        return linear_resize_u8(img, out_hw, area=True)
     if H % h == 0 and W % w == 0:
         sy, sx = H // h, W // w
         total = img.reshape(h, sy, w, sx, *img.shape[2:]).astype(np.int64).sum((1, 3))

@@ -534,3 +534,272 @@ def test_train_xmem_dp_is_not_ported(tmp_path):
 
     with pytest.raises(NotImplementedError, match="item 13"):
         train_xmem.main(["--synthetic", "--dp", "2", "--out", str(tmp_path)], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the interactive tools: click_track and interactive
+# ---------------------------------------------------------------------------
+
+# four clicks a group (two foreground, two background); object 2 enters at frame 3
+CLICKS = "40,60;100,30;70,50,0;20,100,0|@3:120,90;110,70;30,20,0;140,10,0"
+SAM_LOGIT_GAIN = 1e7  # the tiny random decoder's logits are ~1e-6
+NEAR_TIE = 1e-3       # JAX's top two probabilities closer than this: rounding decides
+MAX_NEAR_TIES = 1e-3  # the share of a frame's pixels that may differ (all near-ties)
+
+
+def test_parse_clicks():
+    from d3fields_tpu_torch.apps.click_track import parse_clicks
+
+    groups = parse_clicks("120,80;200,150,0|@3:340.5,200")
+    assert len(groups) == 2
+    at, pts, lbls = groups[0]
+    assert at == 0 and lbls.tolist() == [1, 0] and pts.dtype == np.float32
+    np.testing.assert_allclose(pts, [[120, 80], [200, 150]])
+    at1, pts1, lbls1 = groups[1]
+    assert at1 == 3 and lbls1.tolist() == [1]
+    np.testing.assert_allclose(pts1, [[340.5, 200]])
+    for bad, msg in (("1,2,3,4", "bad click"), ("@3", "bad group"), ("1,2,5", "bad click label"),
+                     ("", "no click groups")):
+        with pytest.raises(ValueError, match=msg):
+            parse_clicks(bad)
+
+
+def _default_scale(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Convolutions at PyTorch's default scale, U(+-1/sqrt(fan_in)), drawn
+    from a seeded generator: the JAX ``init_params`` scale of 0.1 saturates
+    S2M's ResNet-50 and f-BRS's HRNet (every probability 0 or 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                b = m.weight[0].numel() ** -0.5
+                m.weight.uniform_(-b, b, generator=gen)
+                if m.bias is not None:
+                    m.bias.uniform_(-b, b, generator=gen)
+    return model
+
+
+@pytest.fixture(scope="module")
+def interactive_ckpts(recorded):
+    """SAM (the tiny recorded one, its mask logits scaled), f-BRS (HRNet
+    width 6, the class head x10) and S2M state dicts in the reference
+    layouts, written with torch.save, and the recorded XMem. The gains
+    spread the untrained models' outputs, which otherwise leave most
+    pixels' labels to rounding."""
+    from d3fields_tpu_torch.models.fbrs import model as tfm
+    from d3fields_tpu_torch.models.s2m import model as ts2m
+
+    root = recorded["root"]
+    paths = {k: str(root / f"{k}_interactive.pth") for k in ("sam", "fbrs", "s2m")}
+    sd = torch.load(recorded["env"]["D3F_SAM_CKPT"])
+    for k in list(sd):
+        if "output_hypernetworks_mlps" in k and ".proj_out." in k:
+            sd[k] = sd[k] * SAM_LOGIT_GAIN
+    torch.save(sd, paths["sam"])
+    paths["xmem"] = recorded["env"]["D3F_XMEM_CKPT"]
+    fcfg = tfm.FbrsConfig(backbone=tfm.hrnet.HrnetConfig(width=6, ocr_width=8, small=True))
+    fbrs = _default_scale(tfm.FbrsModel(fcfg, device="cpu"), 3)
+    with torch.no_grad():
+        for m in fbrs.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.reset_parameters()
+        fbrs.feature_extractor.cls_head.weight.mul_(10.0)
+    torch.save(fbrs.state_dict(), paths["fbrs"])
+    torch.save(_default_scale(ts2m.init_params(device="cpu"), 4).state_dict(), paths["s2m"])
+    return paths
+
+
+def _near_tie_share(prob: np.ndarray) -> np.ndarray:
+    top2 = np.sort(prob, axis=0)[-2:]
+    return top2[1] - top2[0] < NEAR_TIE
+
+
+def _hold_index_pngs(ours: str, ref: str, ties: dict) -> None:
+    """Every index PNG of ``ref`` equal in ``ours`` but at pixels that
+    ``ties`` marks for its frame (JAX's top two probabilities within
+    NEAR_TIE), and at most MAX_NEAR_TIES of a frame's pixels different."""
+    from PIL import Image
+
+    names = sorted(os.listdir(ref))
+    assert names == sorted(os.listdir(ours)) and names
+    for t, name in enumerate(names):
+        a = np.array(Image.open(os.path.join(ours, name)))
+        b = np.array(Image.open(os.path.join(ref, name)))
+        tie = ties.get(t, np.zeros(b.shape, bool))
+        np.testing.assert_array_equal(a[~tie], b[~tie], err_msg=name)
+        assert (a != b).mean() <= MAX_NEAR_TIES, (name, (a != b).mean())
+
+
+def test_click_track_synthetic_matches_jax(tmp_path, recorded_env, interactive_ckpts,
+                                           monkeypatch):
+    """``click_track --synthetic`` through both apps on the same SAM and
+    XMem checkpoints, with two 4-click groups (the second entering at
+    frame 3) and one refinement round."""
+    from d3fields_tpu.apps import click_track as japp
+    from d3fields_tpu.models.sam import predictor as jpredictor
+    from d3fields_tpu.seg import video_tracker as jvt
+    from d3fields_tpu_torch.apps import click_track as tapp
+
+    ties, frame = {}, [0]
+    orig_predict, orig_process = jpredictor.SamPredictor.predict_points, jvt.VideoMaskTracker.process
+
+    def predict_points(self, *a, **k):
+        masks, iou, low = orig_predict(self, *a, **k)
+        best = int(np.argmax(iou[0]))
+        logits = np.asarray(jpredictor._postprocess_jit(
+            jnp_asarray(low[:, best:best + 1]), self.cfg.image_size, self._resized_hw,
+            self._orig_hw))[0, 0]
+        p = 1.0 / (1.0 + np.exp(-logits.astype(np.float64)))
+        ties[frame[0]] = ties.get(frame[0], False) | _near_tie_share(np.stack([p, 1 - p]))
+        return masks, iou, low
+
+    def process(self, rgb, mask=None, return_index=False):
+        out = orig_process(self, rgb, mask, return_index)
+        if mask is None:
+            ties[frame[0]] = _near_tie_share(np.asarray(self.last_prob[0]))
+        frame[0] += 1
+        return out
+
+    monkeypatch.setattr(jpredictor.SamPredictor, "predict_points", predict_points)
+    monkeypatch.setattr(jvt.VideoMaskTracker, "process", process)
+    argv = ["--synthetic", "--frames", "6", "--size", "-1", "--clicks", CLICKS, "--refine", "1",
+            "--sam_ckpt", interactive_ckpts["sam"], "--xmem_ckpt", interactive_ckpts["xmem"],
+            "--key_dim", "8", "--value_dim", "16", "--hidden_dim", "8"]
+    assert tapp.main(argv + ["--out", str(tmp_path / "ours")], device="cpu") == 0
+    assert japp.main(argv + ["--out", str(tmp_path / "ref")]) == 0
+    assert sorted(ties) == list(range(6))
+    _hold_index_pngs(str(tmp_path / "ours" / "synthetic_0"), str(tmp_path / "ref" / "synthetic_0"),
+                     ties)
+    from PIL import Image
+
+    last = np.array(Image.open(str(tmp_path / "ours" / "synthetic_0" / "00005.png")))
+    assert last.shape == (120, 160) and last.max() <= 2
+
+
+def jnp_asarray(x):
+    import jax.numpy as jnp
+
+    return jnp.asarray(x)
+
+
+INTERACTIVE_SCRIPT = (
+    "goto 0\n"
+    "object 1\n"
+    "free 1 10,10 20,20\n"
+    "commit\n"
+    "click 30 24 +        # f-BRS refinement of object 1\n"
+    "click 44 30 -\n"
+    "click 36 20 +\n"
+    "undo\n"
+    "commit\n"
+    "scribble 1 12,12 18,18 30,14\n"
+    "commit\n"
+    "free 1 25,20 40,30\n"
+    "commit\n"
+    "propagate forward\n"
+    "vis davis {out}/davis.png\n"
+    "vis_target 1\n"
+    "vis popup {out}/popup.png\n"
+    "save\n"
+)
+
+
+def test_interactive_scripted_matches_jax(tmp_path, recorded_env, interactive_ckpts,
+                                          monkeypatch):
+    """``interactive --images`` through both apps on the same PNG frames and
+    checkpoints: a free stroke, f-BRS clicks with undo, a scribble,
+    forward propagation, overlays; then a second run that resumes from the
+    saved masks and propagates backward."""
+    from PIL import Image
+
+    from d3fields_tpu.apps import interactive as japp
+    from d3fields_tpu.interact import session as jsession
+    from d3fields_tpu_torch.apps import interactive as tapp
+    from d3fields_tpu_torch.utils.png import save_png
+
+    src = tmp_path / "frames"
+    src.mkdir()
+    base = (np.random.RandomState(0).rand(48, 64, 3) * 255).astype(np.uint8)
+    for t in range(3):
+        save_png(str(src / f"{t:03d}.png"), np.roll(base, 3 * t, axis=1))
+    ties = {}
+    orig_finish, orig_step = jsession.InteractiveSession._finish_gesture, \
+        jsession.InteractiveSession._xmem_step
+
+    def finish(self):
+        mask = orig_finish(self)
+        ties[self.cursur] = _near_tie_share(self.current_prob)
+        return mask
+
+    def step(self, with_mask):
+        prob = orig_step(self, with_mask)
+        if not with_mask:
+            ties[self.cursur] = _near_tie_share(prob)
+        return prob
+
+    monkeypatch.setattr(jsession.InteractiveSession, "_finish_gesture", finish)
+    monkeypatch.setattr(jsession.InteractiveSession, "_xmem_step", step)
+    ck = interactive_ckpts
+    models = ["--xmem_ckpt", ck["xmem"], "--s2m_ckpt", ck["s2m"], "--fbrs_ckpt", ck["fbrs"],
+              "--key_dim", "8", "--value_dim", "16", "--hidden_dim", "8", "--num_objects", "1",
+              "--size", "-1"]
+    for name, app, kw in (("ours", tapp, {"device": "cpu"}), ("ref", japp, {})):
+        out = tmp_path / name
+        out.mkdir()
+        script = out / "script.txt"
+        script.write_text(INTERACTIVE_SCRIPT.format(out=out))
+        ws = str(out / "ws")
+        assert app.main(["--images", str(src), "--workspace", ws, "--script", str(script)]
+                        + models, **kw) == 0
+        assert sorted(os.listdir(os.path.join(ws, "images"))) == [f"{t:03d}.png" for t in range(3)]
+        if name == "ours":
+            ties.clear()
+    _hold_index_pngs(str(tmp_path / "ours" / "ws" / "masks"), str(tmp_path / "ref" / "ws" / "masks"),
+                     ties)
+    for mode in ("davis", "popup"):
+        a = np.array(Image.open(str(tmp_path / "ours" / f"{mode}.png")))
+        b = np.array(Image.open(str(tmp_path / "ref" / f"{mode}.png")))
+        assert a.shape == b.shape == (48, 64, 3)
+        assert (a != b).any(-1).mean() <= MAX_NEAR_TIES, mode
+    for t in range(3):
+        m = Image.open(str(tmp_path / "ours" / "ws" / "masks" / f"{t:03d}.png"))
+        assert m.mode == "P" and np.array(m).max() == 1
+
+    # resume: the saved masks seed the next run; propagate backward from the end
+    ties.clear()
+    for name, app, kw in (("ours", tapp, {"device": "cpu"}), ("ref", japp, {})):
+        out = tmp_path / name
+        (out / "script2.txt").write_text("goto 2\npropagate backward\nsave\n")
+        assert app.main(["--workspace", str(out / "ws"), "--script", str(out / "script2.txt")]
+                        + models, **kw) == 0
+        if name == "ours":
+            ties.clear()
+    _hold_index_pngs(str(tmp_path / "ours" / "ws" / "masks"), str(tmp_path / "ref" / "ws" / "masks"),
+                     ties)
+
+
+def test_interactive_reads_only_what_it_can(tmp_path):
+    """``--video`` takes the uncompressed AVI that ``TrackVis`` writes and
+    raises on other files; a ``.bmp`` frame raises; ``vis`` writes PNG."""
+    from d3fields_tpu_torch.apps import interactive as tapp
+    from d3fields_tpu_torch.utils.avi import AviWriter
+
+    frames = (np.random.RandomState(1).rand(3, 40, 60, 3) * 255).astype(np.uint8)
+    with AviWriter(str(tmp_path / "clip.avi")) as w:
+        for f in frames:
+            w.write(f)
+    ws, names, image_dir, _ = tapp.prepare_workspace(None, str(tmp_path / "clip.avi"),
+                                                     str(tmp_path / "ws"), 30)
+    assert names == [f"{t:07d}" for t in range(3)]
+    get = tapp.frame_reader(image_dir, names)
+    assert get(0).shape == (30, 45, 3)
+    np.testing.assert_array_equal(
+        get(2), tapp._short_side_resize(frames[2], 30)[..., ::-1])
+    (tmp_path / "clip.mp4").write_bytes(b"\x00\x00\x00\x18ftypmp42")
+    with pytest.raises(ValueError, match="uncompressed 24-bit AVI"):
+        tapp.prepare_workspace(None, str(tmp_path / "clip.mp4"), str(tmp_path / "ws2"), -1)
+    bmp = tmp_path / "bmp"
+    bmp.mkdir()
+    (bmp / "000.bmp").write_bytes(b"BM")
+    with pytest.raises(ValueError, match=r"\.bmp frames are not read"):
+        tapp.prepare_workspace(str(bmp), None, str(tmp_path / "ws3"), -1)

@@ -156,3 +156,110 @@ def test_bilinear_resize_exact_matches_jax():
         ref = np.asarray(jresize.bilinear_resize_exact(jnp.asarray(img), (h, w)))
         got = tresize.bilinear_resize_exact(torch.as_tensor(img), (h, w)).numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=3e-5, err_msg=f"{(H, W)}->{(h, w)}")
+
+
+# ---------------------------------------------------------------------------
+# point and mask prompts (tests/test_sam.py:63-160)
+# ---------------------------------------------------------------------------
+
+CLICKS = np.array([[[8.0, 9.0], [30.0, 22.0]], [[40.0, 41.0], [0.0, 0.0]]], np.float32)
+CLICK_LABELS = np.array([[1, 0], [1, -1]], np.int32)
+
+
+def test_point_and_mask_embeddings_match_jax(oracle):
+    _, jparams, port, cfg = oracle
+    mask = np.random.RandomState(5).randn(2, 4 * cfg.grid, 4 * cfg.grid).astype(np.float32)
+    with torch.no_grad():
+        sparse = port.embed_points(torch.as_tensor(CLICKS),
+                                   torch.as_tensor(CLICK_LABELS, dtype=torch.int64)).numpy()
+        dense = port.embed_mask_dense(torch.as_tensor(mask)).numpy()
+    ref = np.asarray(jsam.embed_points(jparams["prompt"], jnp.asarray(CLICKS),
+                                       jnp.asarray(CLICK_LABELS), cfg.image_size, pad=True))
+    assert sparse.shape == ref.shape == (2, 3, cfg.prompt_hidden)
+    np.testing.assert_allclose(sparse, ref, rtol=1e-4, atol=1e-5)
+    ref = np.asarray(jsam.embed_mask_dense(jparams["prompt"], jnp.asarray(mask)))
+    assert dense.shape == ref.shape == (2, cfg.grid, cfg.grid, cfg.prompt_hidden)
+    np.testing.assert_allclose(dense, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("P,masked,multimask", [(2, False, True), (2, True, False),
+                                                (4, False, False), (4, True, True)])
+def test_point_decode_matches_jax(oracle, P, masked, multimask):
+    """``decode_points`` against ``sam_decode_points`` at the same click
+    count (P = 2 carries a -1 row), with and without a mask prompt."""
+    _, jparams, port, cfg = oracle
+    rs = np.random.RandomState(6 + P)
+    px = rs.randn(1, 64, 64, 3).astype(np.float32)
+    pts = rs.uniform(0, 63, (2, P, 2)).astype(np.float32)
+    lbl = rs.randint(0, 2, (2, P)).astype(np.int32)
+    lbl[1, -1] = -1
+    mask = rs.randn(2, 4 * cfg.grid, 4 * cfg.grid).astype(np.float32) if masked else None
+    emb = jsam.sam_encode_image(jparams, jnp.asarray(px), cfg)
+    ref_m, ref_i = (np.asarray(a) for a in jsam.sam_decode_points(
+        jparams, emb, jnp.asarray(pts), jnp.asarray(lbl), cfg, multimask,
+        mask_input=None if mask is None else jnp.asarray(mask)))
+    embs = torch.as_tensor(np.array(emb))[None].expand(2, -1, -1, -1)
+    with torch.no_grad():
+        got_m, got_i = (a.numpy() for a in port.decode_points(
+            embs, torch.as_tensor(pts), torch.as_tensor(lbl, dtype=torch.int64), multimask,
+            mask_input=None if mask is None else torch.as_tensor(mask)))
+    assert got_m.shape == ref_m.shape and got_i.shape == ref_i.shape
+    _close_at_scale(got_m, ref_m)
+    _close_at_scale(got_i, ref_i)
+
+
+def test_predict_points_matches_jax(oracle):
+    """``SamPredictor.predict_points`` on a non-square image against the JAX
+    predictor at P = 4 clicks (where it adds no bucket pad), then one
+    refinement round with the low-res logits fed back as ``mask_input``."""
+    _, jparams, port, cfg = oracle
+    rs = np.random.RandomState(7)
+    rgb = (rs.rand(50, 60, 3) * 255).astype(np.uint8)
+    pts = rs.uniform(0, 49, (2, 4, 2)).astype(np.float32)
+    lbl = np.array([[1, 1, 0, 0], [1, 0, 1, -1]], np.int32)
+    tp = TPredictor(port, device="cpu").set_image(rgb)
+    jp = JPredictor(jparams, cfg).set_image(rgb)
+    got, ref = tp.predict_points(pts, lbl), jp.predict_points(pts, lbl)
+    assert got[0].dtype == torch.bool and tuple(got[0].shape) == ref[0].shape == (2, 3, 50, 60)
+    assert (got[0].numpy() == ref[0]).mean() > 0.999  # equal up to knife-edge logits
+    _close_at_scale(got[1].numpy(), ref[1])
+    _close_at_scale(got[2].numpy(), ref[2])
+    best = ref[1].argmax(1)
+    low = ref[2][np.arange(2), best]
+    got = tp.predict_points(pts, lbl, multimask_output=False, mask_input=torch.as_tensor(low))
+    ref = jp.predict_points(pts, lbl, multimask_output=False, mask_input=low)
+    assert tuple(got[0].shape) == ref[0].shape == (2, 1, 50, 60)
+    assert (got[0].numpy() == ref[0]).mean() > 0.999
+    _close_at_scale(got[1].numpy(), ref[1])
+    _close_at_scale(got[2].numpy(), ref[2])
+    with pytest.raises(ValueError, match="one low-res logit map per prompt"):
+        tp.predict_points(pts, lbl, mask_input=low[:1])
+
+
+def test_jax_click_bucket_moves_the_decode_and_the_port_pads_none():
+    """The JAX predictor pads a prompt's clicks to ``_bucket(P)`` with -1
+    entries; they join the decoder's token attention. With the tiny SAM of
+    ``random_params_direct``, two clicks padded to four move the low-res
+    logits by 2.7% of their scale and the IoU by 5.0e-6 (ROADMAP, 'Reference
+    caveats'). The port decodes the two clicks unpadded, as
+    ``sam_decode_points`` does when called directly."""
+    cfg = jsam.SamConfig.tiny_test()
+    params = jsam.random_params_direct(cfg)
+    px = jnp.asarray(np.random.RandomState(0).randn(1, 64, 64, 3).astype(np.float32))
+    emb = jsam.sam_encode_image(params, px, cfg)
+    pts, lbl = CLICKS[:1], np.array([[1, 0]], np.int32)
+    pts4 = np.concatenate([pts, np.zeros((1, 2, 2), np.float32)], 1)
+    lbl4 = np.concatenate([lbl, -np.ones((1, 2), np.int32)], 1)
+    m2, i2 = (np.asarray(a) for a in jsam.sam_decode_points(
+        params, emb, jnp.asarray(pts), jnp.asarray(lbl), cfg, True))
+    m4, i4 = (np.asarray(a) for a in jsam.sam_decode_points(
+        params, emb, jnp.asarray(pts4), jnp.asarray(lbl4), cfg, True))
+    assert np.abs(m4 - m2).max() / np.abs(m2).max() > 0.02
+    assert np.abs(i4 - i2).max() > 1e-6
+    port = tsam.load_jax_params(tsam.Sam(cfg, device="cpu"), jax.tree.map(np.asarray, params))
+    with torch.no_grad():
+        got_m, got_i = (a.numpy() for a in port.decode_points(
+            torch.as_tensor(np.array(emb))[None], torch.as_tensor(pts),
+            torch.as_tensor(lbl, dtype=torch.int64)))
+    _close_at_scale(got_m, m2)
+    _close_at_scale(got_i, i2)
