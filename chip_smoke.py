@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU (Hopper):
 It builds every CUDA kernel of the port from ``d3fields_tpu_torch/csrc``
 with nvcc (one nvcc per source, all started together), holds each against
 its plain PyTorch version on the card, at the main path's shapes and at a
-shape for every route of the kernel, and times it (``fused_weighted_interp``
+shape for every route of the kernel (``deform_gather``'s bf16-table route
+too), and times it (``fused_weighted_interp``
 through every route that fits, at the shapes where the wrapper picks each),
 then drives the port's two paths at full width, with random weights from
 seeded generators:
@@ -74,7 +75,18 @@ seeded generators:
    scribble, forward propagation, the five overlays, then a resumed run
    propagating backward; f-BRS's forward and one BRS loss and gradient, and
    S2M's probabilities held to the CPU, each run's saved masks to the
-   session's.
+   session's;
+14. ``bf16`` (run after 5., on the models of 1. and 2.): the JAX package's
+   bf16 compute dtype. The field query of 1. with the backbone's weights
+   rounded to bf16 (3 requests), its descriptors held to the f32 ones on
+   the card and to a CPU bf16 run of one view; ``segment_views`` of 2.
+   with GroundingDINO's gated trunk and SAM's ViT-H trunk in bf16 (3
+   requests; the encoder's gathers take deform_gather's bf16-table route),
+   the detector held to the f32 one (its encoder output and the proposals
+   it selects; the detection-level rule is reported) and SAM's embedding
+   to its f32 one; XMem of 7. in bf16 for 20 frames beside an f32 tracker,
+   probabilities and labels off the near-ties held to it; and 8. with
+   DINOv2 and XMem in bf16 for 2 frames.
 
 The ``tracking`` phase and the recorded tracking runs also write
 ``tracking.avi`` (the ``TrackVis`` mosaics, uncompressed AVI) in the app's
@@ -97,7 +109,8 @@ Output: one JSON object per phase, then the ``kernels`` line, then the
 card's name and power limit as nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that line. With no CUDA device it exits with 2.
-TF32 is off for matmul and cuDNN, so every comparison is in full float32.
+TF32 is off for matmul and cuDNN, so every float32 part computes in full
+float32, the bf16 phase's f32 parts included.
 """
 
 from __future__ import annotations
@@ -382,6 +395,17 @@ GATHER_SHAPES = {
     # hd not a multiple of 4 (scalar route), one level, samples far outside [0, 1]
     "odd_hd": (2, ((23, 31),), 3, 6, 3, 1000, (-3.0, 4.0), 0.0),
 }
+# the shapes held again with a bf16 value table (the bf16-table route):
+# 16-byte loads at hd = 32 and 8, 8-byte loads at hd = 12
+GATHER_BF16_SHAPES = ("encoder", "decoder", "edge", "hd12")
+# Against the f32 route on the same values widened (exactly) to f32: both
+# take the JAX package's positions and weights and sum in f32, only the
+# order of the sum differs. grid_sample, in the plain version, rounds its
+# bilinear weights otherwise (up to 2.0e-6 at the 100x134 level, on the
+# CPU as on the card): the outputs part by up to 4.4e-6 in either route
+# at the encoder shape (NVIDIA H100 80GB HBM3, 700 W; PERF.md), so the
+# plain version holds both routes at KERNEL_RTOL / KERNEL_ATOL.
+GATHER_BF16_RTOL, GATHER_BF16_ATOL = 1e-5, 1e-6
 
 
 def gather_inputs(dev, B, levels, nh, hd, P, Q, loc_range, nan_share, seed):
@@ -418,7 +442,7 @@ def gather_bytes(value, levels, loc, attn) -> dict:
             keys.append(((b * S + pix) * nh + head)[inb])
         start += h * w
     rows = int(torch.unique(torch.cat(keys)).numel())
-    moved = (rows * hd + loc.numel() + attn.numel() + B * Q * nh * hd) * 4
+    moved = rows * hd * value.element_size() + (loc.numel() + attn.numel() + B * Q * nh * hd) * 4
     return {"moved": moved, "value_rows_touched": rows, "value_rows": B * S * nh}
 
 
@@ -480,10 +504,41 @@ def check_deform_gather(dev):
     time_deform_gather("decoder", inputs["decoder"][0], GDINO_LEVELS, *inputs["decoder"][1:])
     times = time_deform_gather("encoder", inputs["encoder"][0], GDINO_LEVELS,
                                *inputs["encoder"][1:])
+
+    # the bf16-table route on the same inputs, the value table rounded to bf16
+    worst16 = 0.0
+    for label in GATHER_BF16_SHAPES:
+        B, levels, nh, hd, P, Q, loc_range, nan_share = GATHER_SHAPES[label]
+        value, loc, attn = gather_inputs(dev, B, levels, nh, hd, P, Q, loc_range, nan_share,
+                                         seed=10 + list(GATHER_SHAPES).index(label))
+        value = value.to(torch.bfloat16)
+        before = dg.deform_gather.launches_bf16
+        out = dg.deform_gather(value, levels, loc, attn)
+        torch.cuda.synchronize()
+        check(dg.deform_gather.launches_bf16 == before + 1,
+              f"deform_gather took another route than bf16 at {label}_bf16")
+        err, ok = compare(out, dg.deform_gather_plain(value, levels, loc, attn))
+        f32 = dg.deform_gather(value.float(), levels, loc, attn)
+        err_f32 = float((out - f32).abs().max())
+        ok_f32 = bool(torch.allclose(out, f32, rtol=GATHER_BF16_RTOL, atol=GATHER_BF16_ATOL))
+        emit({"phase": "kernel_check", "kernel": "deform_gather", "shape": f"{label}_bf16",
+              "B": B, "levels": levels, "nh": nh, "hd": hd, "P": P, "Q": Q,
+              "route": f"bf16x{dg.bf16_width(hd)}", "max_abs_err": err,
+              "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
+              "max_abs_err_vs_f32_route": err_f32, "rtol_vs_f32_route": GATHER_BF16_RTOL,
+              "atol_vs_f32_route": GATHER_BF16_ATOL, "ok_vs_f32_route": ok_f32})
+        check(ok, f"deform_gather's bf16 route disagrees with its plain version at {label}")
+        check(ok_f32, f"deform_gather's bf16 route disagrees with its f32 route at {label}: "
+                      f"{err_f32}")
+        worst16 = max(worst16, err)
+        if label == "encoder":
+            bf16_times = time_deform_gather("encoder_bf16", value, GDINO_LEVELS, loc, attn)
     return {"name": "deform_gather", "route": "cuda",
             "source": "d3fields_tpu_torch/csrc/deform_gather.cu",
             "replaces": "d3fields_tpu/models/groundingdino/gather_pallas.py:238",
-            "max_abs_err": worst, **times}
+            "max_abs_err": worst, **times,
+            "bf16_route": {"route": "cuda", "shape": "encoder_bf16", "max_abs_err": worst16,
+                           **bf16_times}}
 
 
 def capture_gather_inputs(detector, images) -> dict:
@@ -518,16 +573,21 @@ def kernel_wrappers():
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["deform_gather"].launches_bf16 = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Each kernel's launches, and under ``deform_gather_bf16`` those of
+    deform_gather's bf16-table route (counted in ``deform_gather`` too)."""
+    wrappers = kernel_wrappers()
+    return {**{name: fn.launches for name, fn in wrappers.items()},
+            "deform_gather_bf16": wrappers["deform_gather"].launches_bf16}
 
 
 def serve(dev, num_requests: int = 3):
     """The main path at full width: 3 requests of update + batch_eval,
-    then one more request traced by torch.profiler. Returns the launches
-    and the DINOv2 backbone."""
+    then one more request traced by torch.profiler. Returns the launches,
+    the DINOv2 backbone and the requests' update_ms."""
     from d3fields_tpu_torch import D3FieldsConfig, FusionConfig, Fusion
     from d3fields_tpu_torch.fields import kernels
     from d3fields_tpu_torch.models import dinov2
@@ -545,6 +605,7 @@ def serve(dev, num_requests: int = 3):
           sum(p.numel() for p in model.parameters()), "seconds": time.perf_counter() - t0})
 
     tiles = -(-N_POINTS // TILE)
+    update_ms = []
     reset_launch_counts()
     for r in range(num_requests):
         obs = scene(seed=100 + r)
@@ -558,6 +619,7 @@ def serve(dev, num_requests: int = 3):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launched = kernels.fused_weighted_interp.launches - before
+        update_ms.append((t1 - t0) * 1e3)
         # the checks below run the unfused path only: they launch no kernel
         verify_request(dev, state, pts, out, launched, tiles)
         emit({"phase": "request", "request": r, "update_ms": (t1 - t0) * 1e3,
@@ -600,7 +662,7 @@ def serve(dev, num_requests: int = 3):
     check(ok, "fused_weighted_interp disagrees with its plain version on a request tile")
     time_fused_weighted_interp("request_tile", feats, idx, w,
                                valid_points=int((w.sum((0, 2)) > 0).sum()))
-    return launches, backbone
+    return launches, backbone, update_ms
 
 
 # the names of the port's CUDA kernels (csrc/*.cu) in a profiler trace
@@ -861,7 +923,7 @@ def detector_intermediates(model, pixels, ids, gather=None):
     finally:
         for h in hooks:
             h.remove()
-    vision, text = grabbed["encoder"]
+    vision, text = (t.float() for t in grabbed["encoder"])  # bf16 in a bf16 trunk
     scores = torch.matmul(grabbed["obj_query"], text.transpose(1, 2)).amax(-1)
     idx = torch.topk(scores, model.cfg.num_queries, dim=1).indices
     out = {"encoder": vision, "scores": scores, "selected": idx, "logits": logits,
@@ -876,6 +938,81 @@ def detector_intermediates(model, pixels, ids, gather=None):
 # the card and against the CPU (PERF.md): logits 1.7e-4 and 9.0e-5, boxes
 # 2.7e-6 and 3.6e-6, 3,594 of 3,600 and 898 of 900 selections agree.
 DECODER_LOGIT_ATOL, DECODER_BOX_ATOL, MIN_AGREEING = 1e-3, 1e-4, 0.99
+
+
+# Two compute dtypes (the bf16 phase). tests/test_groundingdino.py:408-440's
+# detection-level rule (every top-10 query of one at IoU > 0.9 with one of
+# the other's top 10, sorted best-token scores within 0.05) holds on the
+# CPU tests' tiny model; at full width the random model's 17,821 proposal
+# scores are so close that any rounding reorders the top 900, and the
+# decoder pairs its query embeddings with the proposals by rank. On an
+# NVIDIA H100 80GB HBM3 (700 W; PERF.md) the bf16 forward with the kernel
+# and the same forward with the plain gather, which differ only in the
+# order of f32 sums, gave top-10 IoUs of 0.0-0.105. So the rule is
+# reported, and what it cannot blur is held: the bf16 encoder's output at
+# the JAX package's bf16 budget (1 - cos < 1e-3, tests/test_dinov2.py:99)
+# and the set of the 900 selected proposals per view (97.9-98.4% shared
+# with f32 on every run there). The sound readings and those of planted
+# dtype faults (bf16_fault_readings.py) are in PERF.md.
+DETECTION_MIN_IOU, DETECTION_SCORE_GAP = 0.9, 0.05
+DTYPE_ENCODER_COS, DTYPE_MIN_SELECTED_OVERLAP = 1e-3, 0.97
+
+
+def top10_agreement(logits_a, boxes_a, logits_b, boxes_b) -> tuple:
+    """One view's (largest gap of the sorted best-token scores, smallest
+    best IoU of a top-10 query of ``a`` against the top 10 of ``b``)."""
+    s_a, s_b = torch.sigmoid(logits_a).amax(-1), torch.sigmoid(logits_b).amax(-1)
+    top_a, top_b = boxes_a[torch.argsort(-s_a)[:10]], boxes_b[torch.argsort(-s_b)[:10]]
+
+    def corners(b):
+        return torch.cat([b[:, :2] - b[:, 2:] / 2, b[:, :2] + b[:, 2:] / 2], -1)
+
+    ca, cb = corners(top_a), corners(top_b)
+    lt = torch.maximum(ca[:, None, :2], cb[None, :, :2])
+    rb = torch.minimum(ca[:, None, 2:], cb[None, :, 2:])
+    inter = (rb - lt).clamp(min=0).prod(-1)
+    iou = inter / (top_a[:, 2:].prod(-1)[:, None] + top_b[:, 2:].prod(-1)[None] - inter + 1e-9)
+    gap = float((torch.sort(s_a).values - torch.sort(s_b).values).abs().max())
+    return gap, float(iou.amax(1).min())
+
+
+def cos_deficit(a, b) -> float:
+    """The largest 1 - cos between matching feature vectors (the last axis)."""
+    a, b = a.reshape(-1, a.shape[-1]).float(), b.reshape(-1, b.shape[-1]).float()
+    return float((1 - F.cosine_similarity(a, b, dim=-1)).max())
+
+
+def detector_dtype_reading(a: dict, b: dict) -> dict:
+    """Two compute dtypes' detector intermediates (``detector_intermediates``)
+    side by side: the encoder output's largest 1 - cos, each view's share of
+    selected proposals in common, and the detection-level rule's readings."""
+    views = [top10_agreement(a["logits"][v], a["boxes"][v], b["logits"][v], b["boxes"][v])
+             for v in range(a["logits"].shape[0])]
+    return {"encoder_cos_deficit": cos_deficit(a["encoder"], b["encoder"]),
+            "encoder_max_abs_err": float((a["encoder"] - b["encoder"]).abs().max()),
+            "selection_score_max_abs_err": float((a["scores"] - b["scores"]).abs().max()),
+            "selected_overlap_per_view": [len(set(x.tolist()) & set(y.tolist())) / len(x)
+                                          for x, y in zip(a["selected"], b["selected"])],
+            "queries_agreeing_in_rank": int((a["selected"] == b["selected"]).sum()),
+            "queries": int(a["selected"].numel()),
+            "sorted_score_max_gap_per_view": [g for g, _ in views],
+            "top10_min_iou_per_view": [i for _, i in views]}
+
+
+def compare_detector_dtypes(label: str, a: dict, b: dict) -> None:
+    """The bf16 detector against the f32 one: the encoder output held at
+    DTYPE_ENCODER_COS and each view's selected proposals at
+    DTYPE_MIN_SELECTED_OVERLAP; the detection-level rule reported (see
+    DETECTION_MIN_IOU)."""
+    row = detector_dtype_reading(a, b)
+    emit({"phase": "hold_detector", "against": label, **row,
+          "reported_rule": {"min_iou": DETECTION_MIN_IOU, "max_score_gap": DETECTION_SCORE_GAP},
+          "encoder_cos_tol": DTYPE_ENCODER_COS,
+          "min_selected_overlap": DTYPE_MIN_SELECTED_OVERLAP})
+    check(row["encoder_cos_deficit"] < DTYPE_ENCODER_COS,
+          f"encoder output vs {label}: 1 - cos {row['encoder_cos_deficit']}")
+    check(min(row["selected_overlap_per_view"]) >= DTYPE_MIN_SELECTED_OVERLAP,
+          f"selected proposals vs {label}: {row['selected_overlap_per_view']}")
 
 
 def compare_detections(label: str, a: dict, b: dict) -> None:
@@ -1573,7 +1710,7 @@ def xmem_phase(dev, frames: int = XMEM_FRAMES) -> dict:
     return counts
 
 
-def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
+def serving_step(dev, frames: int = SERVING_FRAMES, compute_dtype: str = "float32") -> dict:
     """The per-frame serving step at full width on the drifting spheres:
     DINOv2 ViT-L/14 (``resize_mode='device'``) -> XMem propagation (the
     tracker of ``xmem_phase``, built by the facade's
@@ -1582,7 +1719,9 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
     the tracker; frames 1-4 run the staged way (``update`` ->
     ``text_queries_for_inst_mask`` -> ``rigid_tracking_steps``), then
     through ``FusedFrameStep.step`` on a second tracker seeded alike, then
-    through ``step_segment`` on a third; the three held together."""
+    through ``step_segment`` on a third; the three held together.
+    ``compute_dtype`` is DINOv2's and XMem's (the ``bf16`` phase runs
+    'bfloat16')."""
     import warnings
 
     from d3fields_tpu_torch import Fusion
@@ -1600,8 +1739,8 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
     backbone = dinov2.Dinov2Backbone(
         dinov2.init_params(dinov2.Dinov2Config.vit_large(),
                            torch.Generator(device=dev).manual_seed(0), device=dev),
-        resize_mode="device", device=dev)
-    xcfg = XMemConfig()
+        compute_dtype=compute_dtype, resize_mode="device", device=dev)
+    xcfg = XMemConfig(compute_dtype=compute_dtype)
     xmodel = xmem_model(dev, xcfg, seed=5)
 
     def factory(num_views, num_objects, image_hw):
@@ -1623,7 +1762,8 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
     src_feats, last0 = stack_keypoints(feats, pts, dev)
     lo, hi = boundary_vectors(SYNTHETIC_BOUNDARIES, dev)
     torch.cuda.synchronize()
-    emit({"phase": "serving_setup", "backbone": "dinov2_vit_large_random",
+    emit({"phase": "serving_setup", "compute_dtype": compute_dtype,
+          "backbone": "dinov2_vit_large_random",
           "xmem": "xmem_full_width_random", "views": 4, "image_hw": list(XMEM_RIG_HW),
           "keypoints": list(last0.shape), "keypoint_res": SERVING_KEYPOINT_RES,
           "seconds": time.perf_counter() - t0})
@@ -1724,7 +1864,8 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
           "the trackers' counters differ")
     for c in (counts, fcounts, scounts):
         check(sum(c.values()) == 0, f"the serving step launched {c}")
-    emit({"phase": "serving_step", "frames": frames, "iters": tcfg.iters,
+    emit({"phase": "serving_step", "compute_dtype": compute_dtype, "frames": frames,
+          "iters": tcfg.iters,
           "staged": staged_rows, "fused_frame_ms": fused_ms,
           "step_segment_ms": seg_ms, "step_segment_ms_per_frame": seg_ms / frames,
           "fused_vs_staged_max_abs_err": errs, "step_segment_vs_step_max_abs_err": seg_errs,
@@ -1740,7 +1881,8 @@ def serving_step(dev, frames: int = SERVING_FRAMES) -> dict:
         nxt[0] += 1
         step.step(dev_frames[nxt[0]]["color"], src_feats, last, depth=dev_frames[nxt[0]]["depth"])
 
-    profile_stage("serving_fused_frame", one_fused_frame)
+    profile_stage("serving_fused_frame" + ("" if compute_dtype == "float32" else "_bf16"),
+                  one_fused_frame)
     return counts, {"fused_frame_ms": fused_ms,
                     "staged_frame_ms": [r["frame_ms"] for r in staged_rows]}
 
@@ -1883,7 +2025,9 @@ def recorded_vis_repr(dev, dmodel, gmodel, smodel, env):
           and counts["fused_weighted_interp"] > 0, f"vis_repr --data_path launch counts {counts}")
     got = dict(np.load(dump))
     boundaries = Boundaries(*(float(v) for v in REPR_BOUNDS[1::2]))
-    fusion = Fusion(num_cam=4, feature_backend=dinov2.Dinov2Backbone(dmodel, device=dev),
+    # the backend builds DINOv2 in bf16, as the JAX app does
+    fusion = Fusion(num_cam=4, feature_backend=dinov2.Dinov2Backbone(
+                        dmodel, compute_dtype="bfloat16", device=dev),
                     mask_backend=GroundedSAMBackend(detector, SamPredictor(smodel, device=dev)),
                     device=dev)
     res = vis_repr_run(fusion, obs, SEG_QUERIES, [thr], boundaries, "recorded_vis_repr_memory")
@@ -1917,7 +2061,8 @@ def recorded_tracking(dev):
         # the resize FusedFrameStep runs, so that the staged loop computes
         # what the fused frames do
         fb = build(*args, **kwargs)
-        return dinov2.Dinov2Backbone(fb.model, resize_mode="device", device=fb.device)
+        return dinov2.Dinov2Backbone(fb.model, compute_dtype=fb.compute_dtype,
+                                     resize_mode="device", device=fb.device)
 
     argv = ["--data_path", SCENE_DIR, "--frames", str(RECORDED_FRAMES), "--query_texts", "shoe",
             "--query_thresholds", "0.5", *TRACK_BOUNDS]
@@ -2756,6 +2901,288 @@ def interactive(dev) -> dict:
     return {k: sum(c[k] for c in counts.values()) for k in counts["first"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the bf16 compute dtype of DINOv2, GroundingDINO, SAM and XMem
+# ---------------------------------------------------------------------------
+
+# DINOv2 ViT-L/14's bf16 descriptors against f32 on the card, and the card's
+# bf16 against the CPU's, and SAM's bf16 image embedding against f32:
+# largest 1 - cos, held at the JAX package's bf16 budget
+# (tests/test_dinov2.py:99). Sound and planted-fault readings: PERF.md.
+BF16_FEATURE_COS = 1e-3
+BF16_XMEM_FRAMES = 20
+# bf16 XMem against f32, on xmem_phase's weights with the prediction head
+# scaled to 100 times PyTorch's default and its bias lowered by 4, so that
+# the background is decided on most pixels (at the head xmem_phase uses, no
+# pixel's top two lie 0.02 apart). As tests/test_torch_xmem.py holds the
+# CPU run against the JAX bf16 core: the labels agree on 99% of the pixels
+# whose f32 top-two margin exceeds 0.1, which must be at least
+# BF16_XMEM_MIN_DECIDED of them on every frame, and the probabilities'
+# 99th-percentile drift stays under JAX's 0.1. Random weights tell the
+# spheres apart by less than bf16 resolves: at a head 3 times larger some
+# sphere pixels are decided and bf16 flips many of them
+# (bf16_fault_readings.py; PERF.md), so only the background is held.
+BF16_XMEM_HEAD_SCALE, BF16_XMEM_HEAD_BIAS = 10.0, -4.0
+BF16_XMEM_MARGIN, BF16_XMEM_MIN_DECIDED, BF16_XMEM_MIN_AGREE = 0.1, 0.05, 0.99
+BF16_XMEM_P99_ATOL = 0.1
+BF16_SERVING_FRAMES = 2
+
+
+def bf16_field_query(dev, backbone, f32_update_ms, num_requests: int = 3) -> dict:
+    """The field query with a bf16 ViT-L/14 (the f32 backbone's weights
+    rounded once): ``num_requests`` requests of update + batch_eval at the
+    ``request`` phase's shapes; the descriptors held to the card's f32 and
+    to the CPU's bf16 run of one view."""
+    from d3fields_tpu_torch import D3FieldsConfig, FusionConfig, Fusion
+    from d3fields_tpu_torch.models import dinov2
+
+    bb16 = dinov2.Dinov2Backbone(backbone.model, compute_dtype="bfloat16", device=dev)
+    check(bb16.model.blocks[0].attn.qkv.weight.dtype == torch.bfloat16, "bf16 DINOv2 weights")
+    fus = Fusion(config=D3FieldsConfig(fusion=FusionConfig(query_tile=TILE)),
+                 feature_backend=bb16, device=dev)
+    pts = np.random.RandomState(1).uniform(-0.5, 0.5, (N_POINTS, 3)).astype(np.float32)
+    tiles = -(-N_POINTS // TILE)
+    rows = []
+
+    def requests():
+        for r in range(num_requests):
+            obs = scene(seed=100 + r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = fus.update(obs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fus.batch_eval(pts, NAMES)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(state.dino_feats.dtype == torch.float32, "bf16 DINOv2 gave non-f32 tokens")
+            check(out["dino_feats"].shape == (N_POINTS, bb16.cfg.hidden_size),
+                  "bf16 field query shape")
+            for k in ("dist", "dino_feats", "mask"):
+                check(bool(torch.isfinite(out[k]).all()), f"bf16 field query: {k} not finite")
+            rows.append({"update_ms": (t1 - t0) * 1e3, "batch_eval_ms": (t2 - t1) * 1e3,
+                         "pts_per_s": N_POINTS / (t2 - t1)})
+            del out
+
+    _, counts = reset_and_count(requests)
+    check(counts["fused_weighted_interp"] == num_requests * tiles and counts["deform_gather"] == 0,
+          f"bf16 field query launch counts {counts}")
+
+    obs = scene(seed=100)
+    profile_stage("update_bf16", lambda: fus.update(obs))
+    images = obs["color"]
+    with torch.no_grad():
+        f16 = bb16(images, patch_hw=(24, 32))
+        f32 = backbone(images, patch_hw=(24, 32))
+    bb_ms = cuda_ms(lambda: bb16(images, patch_hw=(24, 32)), reps=5, warmup=1)
+    cpu_model = dinov2.Dinov2(bb16.cfg, device="cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in backbone.model.state_dict().items()})
+    t0 = time.perf_counter()
+    f16_cpu = dinov2.Dinov2Backbone(cpu_model, compute_dtype="bfloat16", device="cpu")(
+        images[:1], patch_hw=(24, 32))
+    cpu_seconds = time.perf_counter() - t0
+    vs_f32, vs_cpu = cos_deficit(f16, f32), cos_deficit(f16[:1].cpu(), f16_cpu)
+    emit({"phase": "bf16", "path": "field_query", "requests": rows,
+          "update_ms": [r["update_ms"] for r in rows], "f32_update_ms": f32_update_ms,
+          "backbone_ms": bb_ms, "cos_deficit_vs_f32": vs_f32,
+          "cos_deficit_vs_cpu_bf16_view0": vs_cpu,
+          "max_abs_err_vs_f32": float((f16 - f32).abs().max()),
+          "feature_scale": float(f32.abs().max()), "cpu_seconds": cpu_seconds,
+          "cos_tol": BF16_FEATURE_COS, "launches": counts})
+    check(f16.dtype == torch.float32 and vs_f32 < BF16_FEATURE_COS,
+          f"bf16 DINOv2 descriptors vs f32: 1 - cos {vs_f32}")
+    check(vs_cpu < BF16_FEATURE_COS, f"bf16 DINOv2 descriptors card vs CPU: 1 - cos {vs_cpu}")
+    return counts
+
+
+def bf16_segment(dev, seg_backend, num_requests: int = 3) -> dict:
+    """``segment_views`` with GroundingDINO (gated trunk in bf16) and SAM
+    (ViT-H trunk in bf16) built from the ``segment`` phase's f32 models, on
+    its rigs: ``num_requests`` requests, then the detector held to the f32
+    detector (``compare_detector_dtypes``) and SAM's bf16 image
+    embedding to its f32 one (1 - cos, as the DINOv2 descriptors)."""
+    from d3fields_tpu_torch.models.groundingdino.detector import (
+        GroundingDinoDetector, tokenize_classes)
+    from d3fields_tpu_torch.models.sam.predictor import SamPredictor
+    from d3fields_tpu_torch.seg.grounded_sam import GroundedSAMBackend
+
+    det32, sam32 = seg_backend.detector, seg_backend.sam
+    det16 = GroundingDinoDetector(det32.model, tokenize=tokenize, device=dev,
+                                  compute_dtype="bfloat16")
+    sam16 = SamPredictor(sam32.model, device=dev, compute_dtype="bfloat16")
+    backend = GroundedSAMBackend(det16, sam16)
+    gcfg = det16.model.cfg
+    rigs = [scene(seed=300 + r)["color"] for r in range(num_requests)]
+    thr, at_thr = pick_box_threshold(det16, rigs)
+    times, rows = {}, []
+    instrument(det16, "predict_with_classes_batch", "detector_ms", times)
+    instrument(sam16, "set_images", "sam_encode_ms", times)
+    instrument(sam16, "predict_boxes_views", "sam_decode_ms", times)
+
+    def requests():
+        for r, images in enumerate(rigs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            views = backend.segment_views(images, SEG_QUERIES, [thr])
+            torch.cuda.synchronize()
+            boxes = [len(vm.labels) - 1 for vm in views]
+            rows.append({"request": r, **times, "total_ms": (time.perf_counter() - t0) * 1e3,
+                         "boxes_per_view": boxes})
+            check_view_masks(views, images.shape[1:3], SEG_QUERIES)
+            check(boxes == at_thr[r], f"bf16 boxes per view {boxes}, the pick read {at_thr[r]}")
+
+    _, counts = reset_and_count(requests)
+    n = num_requests
+    check(counts["deform_gather"] == n * (gcfg.encoder_layers + gcfg.decoder_layers)
+          and counts["deform_gather_bf16"] == n * gcfg.encoder_layers
+          and counts["fused_weighted_interp"] == 0, f"bf16 segmentation launch counts {counts}")
+    for obj, method in ((det16, "predict_with_classes_batch"), (sam16, "set_images"),
+                        (sam16, "predict_boxes_views")):
+        delattr(obj, method)
+    profile_stage("segment_views_bf16", lambda: backend.segment_views(rigs[0], SEG_QUERIES, [thr]))
+
+    ids = np.repeat(tokenize_classes(SEG_QUERIES, tokenize)[0], len(rigs[0]), axis=0)
+    pixels = det32.prep(rigs[0])
+    compare_detector_dtypes("f32_detector", detector_intermediates(det16.model, pixels, ids),
+                            detector_intermediates(det32.model, pixels, ids))
+    with torch.no_grad():
+        e16 = sam16.model.encode(sam16.prep(rigs[0]))
+        e32 = sam32.model.encode(sam32.prep(rigs[0]))
+    sam_cos = cos_deficit(e16, e32)
+    emit({"phase": "bf16", "path": "segment_views", "requests": rows, "box_threshold": thr,
+          "detector": "groundingdino_swin_t_random, gated trunk bf16",
+          "sam": "sam_vit_h_random, trunk bf16",
+          "sam_embedding_cos_deficit_vs_f32": sam_cos,
+          "sam_embedding_max_abs_err_vs_f32": float((e16 - e32).abs().max()),
+          "cos_tol": BF16_FEATURE_COS, "launches": counts})
+    check(e16.dtype == torch.float32 and sam_cos < BF16_FEATURE_COS,
+          f"SAM's bf16 image embedding vs f32: 1 - cos {sam_cos}")
+    return counts
+
+
+def xmem_deciding_model(dev, cfg, seed: int, scale: float = BF16_XMEM_HEAD_SCALE,
+                        bias: float = BF16_XMEM_HEAD_BIAS):
+    """``xmem_model`` with the prediction head scaled by ``scale`` and
+    ``bias`` added to its bias: weights under which the labels are decided
+    on part of the sphere frames."""
+    model = xmem_model(dev, cfg, seed)
+    with torch.no_grad():
+        model.decoder.pred.weight.mul_(scale)
+        model.decoder.pred.bias.add_(bias)
+    return model
+
+
+def xmem_dtype_reading(got, want) -> dict:
+    """One frame's probabilities (V, O+1, H, W) of the bf16 run against the
+    f32 run's: the largest and the 99th-percentile drift, the share of
+    pixels whose f32 top-two margin exceeds BF16_XMEM_MARGIN (decided), and
+    the label agreement over all pixels and over the decided ones, and the
+    decided pixels' f32 labels counted (background, sphere 1, sphere 2)."""
+    top2 = np.sort(want, axis=1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > BF16_XMEM_MARGIN
+    same = got.argmax(1) == want.argmax(1)
+    return {"max_abs_err": max_err(got, want),
+            "p99_abs_err": float(np.quantile(np.abs(got - want), 0.99)),
+            "decided_share": float(sure.mean()),
+            "decided_labels": np.bincount(want.argmax(1)[sure], minlength=want.shape[1]).tolist(),
+            "label_agreement": float(same.mean()),
+            "label_agreement_decided": float(same[sure].mean()) if sure.any() else None}
+
+
+def xmem_track(dev, model, cfg, frames: int) -> dict:
+    """A tracker of ``model`` under ``cfg`` over ``frames`` sphere frames after
+    the seed: each frame's ms, probabilities and whether it was a memory
+    frame, and the tracker."""
+    from d3fields_tpu_torch.seg.video_tracker import VideoMaskTracker
+
+    tr = VideoMaskTracker(model, cfg, 4, 2, XMEM_RIG_HW, size=cfg.size, device=dev)
+    out = {"ms": [], "probs": [], "memory": [], "tracker": tr}
+    for t in range(frames + 1):
+        sc = sphere_frame(t)
+        rgb = np.ascontiguousarray(sc["color"][..., ::-1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.process(rgb, sc["index"] if t == 0 else None)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["probs"].append(tr.last_prob.cpu().numpy())
+        out["memory"].append(tr.core.last_mem_ti == t)
+    return out
+
+
+def xmem_dtype_runs(dev, frames: int, **head) -> tuple:
+    """f32 and bf16 trackers of ``xmem_deciding_model``'s weights (``head``:
+    its ``scale`` and ``bias``) over ``frames`` sphere frames after the
+    seed: each one's ``xmem_track``, and the bf16 run's launches (the f32
+    run is the reference, not counted)."""
+    from d3fields_tpu_torch.config import XMemConfig
+
+    cfg32 = XMemConfig()
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    model = xmem_deciding_model(dev, cfg32, seed=5, **head)
+    runs = {"f32": xmem_track(dev, model, cfg32, frames)}
+    runs["bf16"], counts = reset_and_count(lambda: xmem_track(dev, model, cfg16, frames))
+    check(runs["bf16"]["tracker"].core.model.decoder.pred.weight.dtype == torch.bfloat16,
+          "bf16 XMem weights")
+    return runs, counts
+
+
+def bf16_xmem(dev, frames: int = BF16_XMEM_FRAMES) -> dict:
+    """``xmem_phase``'s scene with ``XMemConfig(compute_dtype='bfloat16')``
+    for ``frames`` frames after the seed, beside an f32 tracker of the same
+    weights (``xmem_deciding_model``) on the same frames: each one's ms a
+    frame, and the bf16 probabilities and decided labels against the f32
+    ones."""
+    runs, counts = xmem_dtype_runs(dev, frames)
+    check(sum(counts.values()) == 0, f"the bf16 xmem path launched {counts}")
+    agree = []
+    for t in range(frames + 1):
+        got, want = runs["bf16"]["probs"][t], runs["f32"]["probs"][t]
+        check(np.isfinite(got).all() and got.dtype == np.float32, f"bf16 xmem frame {t}")
+        agree.append({"frame": t, **xmem_dtype_reading(got, want)})
+    check(agree[0]["max_abs_err"] <= 1e-6, f"bf16 xmem seed frame vs f32: {agree[0]}")
+    for a in agree[1:]:
+        check(a["decided_share"] >= BF16_XMEM_MIN_DECIDED,
+              f"bf16 xmem frame {a['frame']}: too few decided pixels to hold the labels: {a}")
+        check(a["label_agreement_decided"] >= BF16_XMEM_MIN_AGREE,
+              f"bf16 xmem labels vs f32: {a}")
+        check(a["p99_abs_err"] < BF16_XMEM_P99_ATOL, f"bf16 xmem probabilities vs f32: {a}")
+
+    def medians(name, memory):
+        run = runs[name]
+        return float(np.median([m for m, f in zip(run["ms"][1:], run["memory"][1:])
+                                if f == memory]))
+
+    emit({"phase": "bf16", "path": "xmem", "frames": frames,
+          "xmem_hw": list(runs["bf16"]["tracker"].resized_hw),
+          "head": {"scale": BF16_XMEM_HEAD_SCALE, "bias": BF16_XMEM_HEAD_BIAS},
+          "normal_frame_ms_median": medians("bf16", False),
+          "memory_frame_ms_median": medians("bf16", True),
+          "f32_normal_frame_ms_median": medians("f32", False),
+          "f32_memory_frame_ms_median": medians("f32", True),
+          "frame_ms": runs["bf16"]["ms"], "f32_frame_ms": runs["f32"]["ms"],
+          "memory_frames": [t for t, f in enumerate(runs["bf16"]["memory"]) if f],
+          "vs_f32": agree, "margin": BF16_XMEM_MARGIN, "min_decided": BF16_XMEM_MIN_DECIDED,
+          "min_agreement": BF16_XMEM_MIN_AGREE, "p99_atol": BF16_XMEM_P99_ATOL,
+          "launches": counts})
+    return counts
+
+
+def bf16_phase(dev, backbone, seg_backend, f32_update_ms) -> dict:
+    """Slice 10's path, the bf16 compute dtype at full width: the field
+    query with a bf16 DINOv2, segmentation with bf16 GroundingDINO and SAM
+    trunks, XMem in bf16, and the serving step with both DINOv2 and XMem in
+    bf16. Each part's counts are read around its own driven requests.
+    Returns the summed launches."""
+    counts = {"field_query": bf16_field_query(dev, backbone, f32_update_ms),
+              "segment_views": bf16_segment(dev, seg_backend),
+              "xmem": bf16_xmem(dev)}
+    counts["serving_step"], _ = serving_step(dev, BF16_SERVING_FRAMES,
+                                             compute_dtype="bfloat16")
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["field_query"]}
+    emit({"phase": "bf16", "path": "summary", "launches": counts, "total": total})
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on the GPU only",
@@ -2792,7 +3219,7 @@ def main() -> int:
     lap("kernel_check")
     by_path = {}
     by_path["serve"] = {"fused_weighted_interp": 0, "deform_gather": 0}
-    by_path["serve"]["fused_weighted_interp"], backbone = serve(dev)
+    by_path["serve"]["fused_weighted_interp"], backbone, f32_update_ms = serve(dev)
     torch.cuda.empty_cache()
     lap("serve")
     by_path["segment"] = {"fused_weighted_interp": 0, "deform_gather": 0}
@@ -2803,9 +3230,11 @@ def main() -> int:
     by_path["vis_repr"] = vis_repr_full(dev)
     lap("vis_repr")
     by_path["vis_repr_backends"] = vis_repr_backends(dev, backbone, seg_backend)
+    lap("vis_repr_backends")
+    by_path["bf16"] = bf16_phase(dev, backbone, seg_backend, f32_update_ms)
     del backbone, seg_backend
     torch.cuda.empty_cache()
-    lap("vis_repr_backends")
+    lap("bf16")
     by_path["tracking"] = tracking(dev)
     torch.cuda.empty_cache()
     lap("tracking")
@@ -2835,7 +3264,14 @@ def main() -> int:
     for row in rows:
         row["launches_by_path"] = {path: c[row["name"]] for path, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    emit({"kernels": [{k: row[k] for k in keys + ("launches_by_path",)} for row in rows]})
+    # the bf16-table route's own launches (counted in deform_gather's too)
+    bf16 = rows[1]["bf16_route"]
+    bf16["launches_by_path"] = {path: c.get("deform_gather_bf16", 0)
+                                for path, c in by_path.items()}
+    bf16["launches"] = sum(bf16["launches_by_path"].values())
+    check(bf16["launches_by_path"]["bf16"] > 0, "the bf16 phase launched no bf16-table gather")
+    emit({"kernels": [{k: row[k] for k in keys + ("launches_by_path",) + (
+        ("bf16_route",) if "bf16_route" in row else ())} for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,10 +21,12 @@ package wrote (``save_params``) loads through each family's
 ``load_jax_params``. The SAM encoder (vit-b/l/h) and the Swin trunk
 (swin-t/b) are read from the checkpoint's patch-embed weight.
 
-Every model runs in float32. The JAX package builds DINOv2 in bfloat16
-and takes ``D3F_SAM_DTYPE`` / ``D3F_GDINO_DTYPE``; here DINOv2 is float32
-and those variables raise unless they say ``float32`` (ROADMAP, the bf16
-lever). ``D3F_GDINO_VIEW_CHUNK``, ``D3F_GDINO_QUERY_CHUNK`` and
+Compute dtypes, as in the JAX package: DINOv2 is built in bfloat16 (its
+tokens come back f32); ``D3F_SAM_DTYPE`` and ``D3F_GDINO_DTYPE`` pick
+SAM's ViT trunk and GroundingDINO's gated trunk dtype, ``float32`` (the
+default) or ``bfloat16``; any other value raises a ValueError naming the
+variable. XMem takes ``XMemConfig.compute_dtype`` (float32 here).
+``D3F_GDINO_VIEW_CHUNK``, ``D3F_GDINO_QUERY_CHUNK`` and
 ``D3F_GDINO_GATHER`` are TPU workarounds the port has no use for. Every
 backend is built on ``device`` (CUDA unless the caller names another).
 """
@@ -69,12 +71,12 @@ def _checkpoint_width(sd: dict, key: str, what: str) -> int:
     return int(np.shape(sd[key])[0])
 
 
-def _float32_only(var: str) -> None:
+def _env_dtype(var: str) -> str:
+    """The compute dtype an environment variable names (default float32)."""
     dtype = os.environ.get(var, "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"{var}={dtype}: d3fields_tpu_torch runs every model in float32; the bf16 "
-            "compute_dtype is not ported (ROADMAP.md, 'Levers': f32 without TF32)")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"{var}={dtype!r}: expected 'float32' or 'bfloat16'")
+    return dtype
 
 
 def load_dinov2(path: str, device):
@@ -177,7 +179,7 @@ def build_feature_backend(ckpt: str | None = None, *, device=None):
             "--synthetic"
         )
     dev = resolve_device(device)
-    return Dinov2Backbone(load_dinov2(ckpt, dev), device=dev)
+    return Dinov2Backbone(load_dinov2(ckpt, dev), compute_dtype="bfloat16", device=dev)
 
 
 def build_mask_backend(sam_ckpt: str | None = None, gdino_ckpt: str | None = None,
@@ -195,13 +197,13 @@ def build_mask_backend(sam_ckpt: str | None = None, gdino_ckpt: str | None = Non
             "SAM/GroundingDINO checkpoints not found; set D3F_SAM_CKPT and "
             "D3F_GDINO_CKPT (+ D3F_BERT_VOCAB), or run with --synthetic"
         )
-    _float32_only("D3F_SAM_DTYPE")
-    _float32_only("D3F_GDINO_DTYPE")
+    sam_dtype, gdino_dtype = _env_dtype("D3F_SAM_DTYPE"), _env_dtype("D3F_GDINO_DTYPE")
     dev = resolve_device(device)
     tokenize = _wordpiece_tokenizer(vocab) if vocab else _no_tokenizer
     return GroundedSAMBackend(
-        GroundingDinoDetector(load_groundingdino(gdino_ckpt, dev), tokenize, device=dev),
-        SamPredictor(load_sam(sam_ckpt, dev), device=dev),
+        GroundingDinoDetector(load_groundingdino(gdino_ckpt, dev), tokenize, device=dev,
+                              compute_dtype=gdino_dtype),
+        SamPredictor(load_sam(sam_ckpt, dev), device=dev, compute_dtype=sam_dtype),
     )
 
 

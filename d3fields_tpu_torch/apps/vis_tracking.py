@@ -243,9 +243,10 @@ def main(argv=None, *, device=None):
                     "re-detecting per frame")
             fb = feature_backend
             if fb.resize_mode != "device":
-                # the fused step resizes on the device: the same weights
-                # behind a device-resize wrapper
-                fb = Dinov2Backbone(fb.model, pos_interpolate=fb.pos_interpolate,
+                # the fused step resizes on the device: the same weights, in
+                # the same compute dtype, behind a device-resize wrapper
+                fb = Dinov2Backbone(fb.model, compute_dtype=fb.compute_dtype,
+                                    pos_interpolate=fb.pos_interpolate,
                                     resize_mode="device", device=fb.device)
             # obs colour is BGR (cv2 convention): DINOv2 takes it as it is
             # (as Fusion.update does) while the tracker was seeded with RGB,

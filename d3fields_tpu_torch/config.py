@@ -86,9 +86,7 @@ class XMemConfig:
     enable_long_term_count_usage: bool = True
     size: int = 480                  # resize short side for processing
     # dtype of the CNN encoders/decoder inside the propagation step
-    # ("float32" | "bfloat16"); memory attention always runs f32. At the
-    # d3fields shape (4 cams, 480x640) the step is attention/bandwidth
-    # bound and bf16 is a wash — the knob matters for larger batches.
+    # ("float32" | "bfloat16"); the memory and its attention always run f32
     compute_dtype: str = "float32"
 
 

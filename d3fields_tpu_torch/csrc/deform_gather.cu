@@ -9,8 +9,8 @@
 //   out[b, q, h*hd + c] = sum_l sum_p attn[b, q, h, l, p] *
 //                         bilinear(value_l[b, :, h, c], loc[b, q, h, l, p])
 //
-//   value (B, S, nh, hd) f32, the L levels' (h_l, w_l) maps flattened
-//     row-major and stacked along S from level_start[l];
+//   value (B, S, nh, hd) f32 or bf16, the L levels' (h_l, w_l) maps
+//     flattened row-major and stacked along S from level_start[l];
 //   loc (B, Q, nh, L, P, 2) f32 (x, y) in [0, 1] (any value is allowed);
 //   attn (B, Q, nh, L, P) f32  ->  out (B, Q, nh*hd) f32.
 //
@@ -63,7 +63,22 @@
 // faster on the card than the heads of one query side by side, on random
 // and on a request's inputs (PERF.md). Nothing of size (B, Q, nh, L, P, hd)
 // ever exists. Times: PERF.md (chip_smoke.py).
+//
+// The bf16-table route (d3f_deform_gather_bf16): the GroundingDINO encoder
+// under the bf16 compute dtype projects its values in bf16, and the TPU
+// kernel then gathers bf16 tables and sums in f32. Here the same kernel
+// reads bf16 rows: a lane loads a chunk of 8 bf16 (16 bytes) when
+// hd % 8 == 0, of 4 (8 bytes) when hd % 4 == 0, else one, widens each pair
+// with __bfloat1622float2 and accumulates exactly as the f32 route, into
+// f32 registers and an f32 output. The index phase, the weights and the
+// NaN and out-of-map rules are shared. At hd = 32 a 64-byte row takes 4
+// lanes of 16 bytes, so one warp load fetches G = 8 corner rows (4 in the
+// f32 route) and each sample round takes half the steps. On an NVIDIA H100
+// 80GB HBM3 at 700 W it runs about as fast as the f32 route at the encoder
+// shape (PERF.md): half the row bytes through L1 bought little, so the row
+// traffic is not what bounds either route now.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -73,35 +88,70 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-// the row a corner outside the map reads
+// the row a corner outside the map reads: 16 zero bytes, a zero of every
+// chunk type below
 __device__ __align__(16) float kZeros[4] = {0.f, 0.f, 0.f, 0.f};
 
-__device__ __forceinline__ void zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
-__device__ __forceinline__ void zero(float& a) { a = 0.f; }
+// kWidth consecutive table elements of type T, read by one lane in one
+// load (Raw) and widened to f32.
+template <typename T, int kWidth>
+struct Chunk;
 
-__device__ __forceinline__ void axpy(float4& acc, float w, const float4& x) {
-  acc.x = fmaf(w, x.x, acc.x);
-  acc.y = fmaf(w, x.y, acc.y);
-  acc.z = fmaf(w, x.z, acc.z);
-  acc.w = fmaf(w, x.w, acc.w);
-}
-__device__ __forceinline__ void axpy(float& acc, float w, float x) { acc = fmaf(w, x, acc); }
+template <>
+struct Chunk<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[4]) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+};
 
-__device__ __forceinline__ void add(float4& a, const float4& b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
-}
-__device__ __forceinline__ void add(float& a, float b) { a += b; }
+template <>
+struct Chunk<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[1]) { f[0] = r; }
+};
 
-__device__ __forceinline__ float4 shfl_down(const float4& v, int delta) {
-  return make_float4(__shfl_down_sync(kFull, v.x, delta), __shfl_down_sync(kFull, v.y, delta),
-                     __shfl_down_sync(kFull, v.z, delta), __shfl_down_sync(kFull, v.w, delta));
+// two bf16 packed in 32 bits (the lower one first) as two floats
+__device__ __forceinline__ float2 widen2(unsigned int pair) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pair));
 }
-__device__ __forceinline__ float shfl_down(float v, int delta) {
-  return __shfl_down_sync(kFull, v, delta);
-}
+
+template <>
+struct Chunk<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[8]) {
+    const unsigned int u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = widen2(u[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[4]) {
+    const float2 a = widen2(r.x), b = widen2(r.y);
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = b.x;
+    f[3] = b.y;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16, 1> {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[1]) {
+    f[0] = __uint_as_float(static_cast<unsigned int>(r) << 16);  // bf16 is f32's top half
+  }
+};
 
 // Sample s of one (b, q, head): its four corner pixels (indices into the
 // S axis, -1 for a corner outside the map) and weights (attn times the
@@ -147,17 +197,21 @@ __device__ __forceinline__ void sample_corners(const int4* __restrict__ levels,
   wt[3] = __fmul_rn(a, pix[3] >= 0 ? __fmul_rn(tx, ty) : 0.f);
 }
 
-// Vec is float4 (hd % 4 == 0, 16-byte aligned value and out) or float.
-// kRowLanes is the lanes per corner row when known at compile time (8 for
-// the detector's hd = 32), else 0. levels: (L,) int4 rows of
+// T is the table's element type (float or bf16) and kWidth the elements a
+// lane reads in one load (4 or 1 for float, 8, 4 or 1 for bf16; value and
+// out aligned to the load, hd % kWidth == 0). kRowLanes is the lanes per
+// corner row when known at compile time (8 for the detector's hd = 32 in
+// f32, 4 in bf16), else 0. levels: (L,) int4 rows of
 // (h, w, level_start, 0). blockIdx.z is the batch
 // row b, blockIdx.y the head, and the block's warps hold kWarpsPerBlock
 // consecutive queries.
-template <typename Vec, int kRowLanes>
+template <typename T, int kWidth, int kRowLanes>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-deform_gather_kernel(const float* __restrict__ value, const int4* __restrict__ levels,
+deform_gather_kernel(const T* __restrict__ value, const int4* __restrict__ levels,
                      const float* __restrict__ loc, const float* __restrict__ attn,
                      float* __restrict__ out, int S, int Q, int nh, int hd, int L, int P) {
+  using C = Chunk<T, kWidth>;
+  using Raw = typename C::Raw;
   const int q = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   const int head = blockIdx.y;
   if (q >= Q) return;  // uniform over the warp
@@ -165,23 +219,24 @@ deform_gather_kernel(const float* __restrict__ value, const int4* __restrict__ l
   const int64_t b = blockIdx.z;
   const int64_t row = (b * Q + q) * nh + head;
   const int LP = L * P;
-  constexpr int kWidth = sizeof(Vec) / sizeof(float);
-  const int nvec = hd / kWidth;            // vectors in one corner row
+  const int nvec = hd / kWidth;            // chunks in one corner row
   const int gw = kRowLanes ? kRowLanes : nvec < 32 ? nvec : 32;  // lanes per corner row
   const int G = 32 / gw;                   // corner rows per warp load
   const int g = lane / gw, j = lane - g * gw;
   const int64_t pixel_stride = static_cast<int64_t>(nh) * hd;  // one pixel of one level
-  const float* __restrict__ v_head = value + b * S * pixel_stride + static_cast<int64_t>(head) * hd;
+  const T* __restrict__ v_head = value + b * S * pixel_stride + static_cast<int64_t>(head) * hd;
   const float* __restrict__ loc_row = loc + row * LP * 2;
   const float* __restrict__ attn_row = attn + row * LP;
-  Vec* __restrict__ out_row = reinterpret_cast<Vec*>(out + row * hd);
+  float* __restrict__ out_row = out + row * hd;
+  const T* zeros = reinterpret_cast<const T*>(kZeros);
 
   for (int cv0 = 0; cv0 < nvec; cv0 += gw) {  // one pass unless hd > 32 * kWidth
     const int cv = cv0 + j;
     const bool active = g < G && cv < nvec;
-    const float* __restrict__ v_lane = v_head + static_cast<int64_t>(cv) * kWidth;
-    Vec acc;
-    zero(acc);
+    const T* __restrict__ v_lane = v_head + static_cast<int64_t>(cv) * kWidth;
+    float acc[kWidth];
+#pragma unroll
+    for (int i = 0; i < kWidth; ++i) acc[i] = 0.f;
     for (int s0 = 0; s0 < LP; s0 += 32) {
       const int ns = min(32, LP - s0);
       int pix[4] = {-1, -1, -1, -1};
@@ -194,42 +249,67 @@ deform_gather_kernel(const float* __restrict__ value, const int4* __restrict__ l
         // a corner outside the map read a zero row.
         const int src = base + g;
         const bool take = active && src < ns;
-        const float* rows[4];
+        const T* rows[4];
         float a[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int p = __shfl_sync(kFull, pix[k], src & 31);
           const float wk = __shfl_sync(kFull, wt[k], src & 31);
-          rows[k] = take && p >= 0 ? v_lane + p * pixel_stride : kZeros;
+          rows[k] = take && p >= 0 ? v_lane + p * pixel_stride : zeros;
           a[k] = take ? wk : 0.f;
         }
-        Vec v[4];
+        Raw v[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] = __ldg(reinterpret_cast<const Vec*>(rows[k]));
+        for (int k = 0; k < 4; ++k) v[k] = __ldg(reinterpret_cast<const Raw*>(rows[k]));
 #pragma unroll
-        for (int k = 0; k < 4; ++k) axpy(acc, a[k], v[k]);
+        for (int k = 0; k < 4; ++k) {
+          float f[kWidth];
+          C::widen(v[k], f);
+#pragma unroll
+          for (int i = 0; i < kWidth; ++i) acc[i] = fmaf(a[k], f[i], acc[i]);
+        }
       }
     }
     // group g + stride's partial sum into group g, a tree over the G groups
     for (int stride = 1; stride < G; stride <<= 1) {
-      const Vec other = shfl_down(acc, stride * gw);
-      if (g % (2 * stride) == 0 && g + stride < G) add(acc, other);
+#pragma unroll
+      for (int i = 0; i < kWidth; ++i) {
+        const float other = __shfl_down_sync(kFull, acc[i], stride * gw);
+        if (g % (2 * stride) == 0 && g + stride < G) acc[i] += other;
+      }
     }
-    if (g == 0 && cv < nvec) out_row[cv] = acc;
+    if (g == 0 && cv < nvec) {
+      float* dst = out_row + cv * kWidth;
+      if constexpr (kWidth % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < kWidth; i += 4) {
+          *reinterpret_cast<float4*>(dst + i) = make_float4(acc[i], acc[i + 1], acc[i + 2],
+                                                            acc[i + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kWidth; ++i) dst[i] = acc[i];
+      }
+    }
   }
 }
 
-template <typename Vec, int kRowLanes = 0>
-void launch(const void* value, const void* levels, const void* loc, const void* attn, void* out,
-            int64_t B, int64_t S, int64_t Q, int64_t nh, int64_t hd, int64_t L, int64_t P,
-            cudaStream_t stream) {
+template <typename T, int kWidth, int kRowLanes = 0>
+int launch(const void* value, const void* levels, const void* loc, const void* attn, void* out,
+           int64_t B, int64_t S, int64_t Q, int64_t nh, int64_t hd, int64_t L, int64_t P,
+           cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((Q + kWarpsPerBlock - 1) / kWarpsPerBlock),
                   static_cast<unsigned>(nh), static_cast<unsigned>(B));
-  deform_gather_kernel<Vec, kRowLanes><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const float*>(value), static_cast<const int4*>(levels),
+  deform_gather_kernel<T, kWidth, kRowLanes><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(value), static_cast<const int4*>(levels),
       static_cast<const float*>(loc), static_cast<const float*>(attn), static_cast<float*>(out),
       static_cast<int>(S), static_cast<int>(Q), static_cast<int>(nh), static_cast<int>(hd),
       static_cast<int>(L), static_cast<int>(P));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, int64_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
 }
 
 }  // namespace
@@ -242,14 +322,36 @@ extern "C" int d3f_deform_gather(const void* value, const void* levels, const vo
                                  const void* attn, void* out, int64_t B, int64_t S, int64_t Q,
                                  int64_t nh, int64_t hd, int64_t L, int64_t P, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = hd % 4 == 0 && reinterpret_cast<uintptr_t>(value) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec4 = hd % 4 == 0 && aligned(value, 16) && aligned(out, 16);
   if (vec4 && hd == 32) {  // the detector's heads: the loop over corner rows unrolls fully
-    launch<float4, 8>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
-  } else if (vec4) {
-    launch<float4>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
-  } else {
-    launch<float>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
+    return launch<float, 4, 8>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (vec4) return launch<float, 4>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
+  return launch<float, 1>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
+}
+
+// The bf16-table route: value (B, S, nh, hd) bf16, loc, attn and out f32 as
+// above. `width` is the bf16 elements a lane loads at once, 8, 4 or 1: hd
+// must be a multiple of it, `value` aligned to 2 * width bytes and `out` to
+// 16 bytes (width > 1). Anything else returns cudaErrorInvalidValue and
+// launches nothing: the caller picks the width and checks the pointers.
+extern "C" int d3f_deform_gather_bf16(const void* value, const void* levels, const void* loc,
+                                      const void* attn, void* out, int64_t B, int64_t S,
+                                      int64_t Q, int64_t nh, int64_t hd, int64_t L, int64_t P,
+                                      int64_t width, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (!(width == 8 || width == 4 || width == 1) || hd % width != 0 ||
+      !aligned(value, 2 * width) || (width > 1 && !aligned(out, 16))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (width == 8 && hd == 32) {  // the detector's heads: 4 lanes a row, unrolled
+    return launch<__nv_bfloat16, 8, 4>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
+  }
+  if (width == 8) {
+    return launch<__nv_bfloat16, 8>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
+  }
+  if (width == 4) {
+    return launch<__nv_bfloat16, 4>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
+  }
+  return launch<__nv_bfloat16, 1>(value, levels, loc, attn, out, B, S, Q, nh, hd, L, P, s);
 }

@@ -38,3 +38,36 @@ def named(**children: nn.Module) -> nn.Module:
     for k, v in children.items():
         m.add_module(k, v)
     return m
+
+
+# compute_dtype names, as the JAX package spells them
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` name ('float32' or 'bfloat16')."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast_copy(model: nn.Module, dtype: torch.dtype, prefixes=("",)) -> nn.Module:
+    """``model`` with its floating parameters and buffers whose names start
+    with one of ``prefixes`` rounded to ``dtype``, once: the JAX package's
+    compute-dtype cast of a model's trunk. The result is a new module tree
+    that shares every other tensor with ``model`` (and ``model`` itself when
+    nothing changes); ``model`` is left as it was."""
+    import copy
+
+    memo, changed = {}, False
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if id(t) in memo:  # a tied tensor
+            continue
+        if t.is_floating_point() and t.dtype != dtype and name.startswith(tuple(prefixes)):
+            cast = t.detach().to(dtype)
+            memo[id(t)] = nn.Parameter(cast, t.requires_grad) if isinstance(t, nn.Parameter) \
+                else cast
+            changed = True
+        else:
+            memo[id(t)] = t
+    return copy.deepcopy(model, memo) if changed else model

@@ -11,13 +11,20 @@ per-view descriptor map (``fusion.py:593-629``).
   carries the JAX package's stacked parameter dict across.
 - Patch embedding is an unfold times the (D, 3·P·P) view of the conv
   weight, so it is a matrix product that TF32 settings for convolutions do
-  not touch. LayerNorm (eps 1e-6) and the attention softmax run in f32,
-  GELU is exact, attention is plain ``matmul`` + ``softmax``.
+  not touch. GELU is exact, attention is plain ``matmul`` + ``softmax``.
+- The transformer runs in the dtype of its weights, float32 or bfloat16
+  (the JAX package's ``compute_dtype``, ``dinov2.py:125-176``): a bf16
+  model takes bf16 pixels, positions and tokens; its LayerNorms take their
+  statistics and apply the affine in f32 and round once (torch's layer
+  norm of a bf16 tensor); the attention logits are scaled and soft-maxed
+  in f32 and the probabilities rounded to bf16; the final tokens come back
+  as f32.
 - :class:`Dinov2Backbone` resizes with the bit-exact Pillow resampler
   ('pil', default) or antialiased bilinear ('device'), both on the device,
   normalises,
   runs the transformer and returns the patch tokens on the (ph, pw) grid,
-  with positional embeddings interpolated per grid and cached.
+  with positional embeddings interpolated per grid and cached. Its
+  ``compute_dtype='bfloat16'`` rounds the weights once, at construction.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d3fields_tpu_torch.models.common import imagenet_stats, linear
+from d3fields_tpu_torch.models.common import cast_copy, imagenet_stats, linear, torch_dtype
 from d3fields_tpu_torch.models.resize import (
     bilinear_resize, cubic_resize_np, pil_bilinear_resize_u8,
 )
@@ -94,8 +101,9 @@ class _Attention(nn.Module):
         nh = self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, nh, D // nh).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, N, dh)
-        logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / np.sqrt(D // nh))
-        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        # scaled in f32, as the JAX package's product with a numpy scalar promotes
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / np.sqrt(D // nh))
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, D)
         return self.proj(out)
 
@@ -159,20 +167,21 @@ class Dinov2(nn.Module):
           pos_embed: (1 + gh*gw, D) interpolated positional table.
 
         Returns: (B, 1 + gh*gw, D) final-layernorm tokens (cls first) —
-        torch hub's ``x_norm_*`` outputs.
+        torch hub's ``x_norm_*`` outputs, in f32 whatever the weights' dtype.
         """
         B, H, W, _ = pixels.shape
         P = self.cfg.patch_size
         D = self.cfg.hidden_size
+        dt = self.cls_token.dtype
         gh, gw = H // P, W // P
         x = pixels.reshape(B, gh, P, gw, P, 3).permute(0, 1, 3, 5, 2, 4)
-        x = x.reshape(B, gh * gw, 3 * P * P)  # (c, py, px): the conv weight's order
+        x = x.reshape(B, gh * gw, 3 * P * P).to(dt)  # (c, py, px): the conv weight's order
         proj = self.patch_embed.proj
         x = F.linear(x, proj.weight.reshape(D, 3 * P * P), proj.bias)
-        x = torch.cat([self.cls_token.expand(B, 1, D), x], dim=1) + pos_embed[None]
+        x = torch.cat([self.cls_token.expand(B, 1, D), x], dim=1) + pos_embed[None].to(dt)
         for blk in self.blocks:
             x = blk(x)
-        return self.norm(x)
+        return self.norm(x).float()
 
 
 def init_params(cfg: Dinov2Config, generator: Optional[torch.Generator] = None,
@@ -211,8 +220,8 @@ class Dinov2Backbone:
     tokens to the (ph, pw) grid.
     """
 
-    def __init__(self, model: Dinov2, *, pos_interpolate: str = "hub",
-                 resize_mode: str = "pil", device=None):
+    def __init__(self, model: Dinov2, *, compute_dtype: str = "float32",
+                 pos_interpolate: str = "hub", resize_mode: str = "pil", device=None):
         """``pos_interpolate``: 'hub' reproduces torch-hub DINOv2's
         scale-factor interpolation with interpolate_offset=0.1 (what the
         reference loads, ``fusion.py:223``); 'hf' is huggingface
@@ -223,6 +232,10 @@ class Dinov2Backbone:
         ``T.Resize`` uses; 'device' resizes float images on the device with
         :func:`bilinear_resize` (close to PIL, not bit-identical).
 
+        ``compute_dtype`` 'bfloat16' runs the transformer on a copy of the
+        model's weights rounded to bf16 once, here (``model`` keeps its own);
+        the positional table stays f32 until it is interpolated.
+
         ``device`` defaults to CUDA; the model is moved there.
         """
         if resize_mode not in ("pil", "device"):
@@ -230,7 +243,10 @@ class Dinov2Backbone:
         if pos_interpolate not in ("hub", "hf"):
             raise ValueError(f"pos_interpolate must be 'hub' or 'hf', got {pos_interpolate!r}")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
+        # the transformer in the compute dtype; its pos_embed stays f32
+        self.model = cast_copy(model.to(self.device).eval(), torch_dtype(compute_dtype),
+                               ("cls_token", "patch_embed.", "blocks.", "norm."))
         self.cfg = model.cfg
         self.pos_interpolate = pos_interpolate
         self.resize_mode = resize_mode

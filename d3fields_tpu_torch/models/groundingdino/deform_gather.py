@@ -15,6 +15,11 @@ deformable_gather_pallas`` and of the function it computes,
 - The kernel's warps walk (batch, query, head) head-major: neighbouring
   warps hold neighbouring queries of one head, which is faster on the card
   than the heads of one query side by side (PERF.md).
+- ``value`` may be bfloat16 (the encoder under the bf16 compute dtype,
+  JAX ``model.py:373-397``): the kernel's bf16-table route reads bf16 rows
+  and accumulates in f32, and the plain version widens the table to f32
+  before it samples, so both sum in f32 as the TPU kernel does. ``loc``,
+  ``attn`` and the output stay f32.
 """
 
 from __future__ import annotations
@@ -36,6 +41,19 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel_bf16():
+    fn = _build.load("deform_gather").d3f_deform_gather_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bf16_width(hd: int) -> int:
+    """The bf16 elements one lane of the bf16-table route loads at once:
+    16 bytes where hd % 8 == 0, 8 where hd % 4 == 0, else one element."""
+    return 8 if hd % 8 == 0 else 4 if hd % 4 == 0 else 1
 
 
 @functools.lru_cache(maxsize=16)
@@ -61,7 +79,11 @@ def deform_gather_plain(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]]
     device, as in the JAX package: ``attn + loc * 0`` is NaN there and
     ``attn`` elsewhere, since CUDA's grid_sample samples zeros at a NaN
     position where the CPU's gives NaN.
+
+    A bf16 ``value`` is widened to f32 first (exactly), so the taps are
+    weighted and summed in f32, as the TPU kernel sums bf16 tables.
     """
+    value = value.float()
     B, S, nh, hd = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     attn = attn + (loc * 0.0).sum(-1)
@@ -84,8 +106,8 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     """Deformable-attention sampling.
 
     Args:
-      value: (B, S, nh, hd) float32; the levels' (h, w) maps flattened
-        row-major and stacked along S in ``spatial_shapes`` order.
+      value: (B, S, nh, hd) float32 or bfloat16; the levels' (h, w) maps
+        flattened row-major and stacked along S in ``spatial_shapes`` order.
       spatial_shapes: the L levels' (h, w), with sum(h*w) == S.
       loc: (B, Q, nh, L, P, 2) float32 sample positions (x, y), [0, 1]
         spanning each map; positions outside sample zeros, and a NaN
@@ -94,8 +116,11 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
 
     Returns: (B, Q, nh*hd) float32.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel, and
-    ``deform_gather.launches`` counts each launch.
+    CPU tensors take the plain version. CUDA tensors launch the kernel, its
+    f32 route or, for a bf16 ``value``, its bf16-table route (which loads
+    :func:`bf16_width` elements at once and raises when ``value`` is not
+    aligned for that load); ``deform_gather.launches`` counts each launch,
+    and ``deform_gather.launches_bf16`` those of the bf16-table route.
     """
     if value.dim() != 4 or loc.dim() != 6 or attn.dim() != 5:
         raise ValueError("value must be (B, S, nh, hd), loc (B, Q, nh, L, P, 2) and "
@@ -108,9 +133,10 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                          f"value {tuple(value.shape)}")
     if len(shapes) != L or sum(h * w for h, w in shapes) != S:
         raise ValueError(f"spatial_shapes {shapes} do not cover S={S} in L={L} levels")
-    if not (value.dtype == loc.dtype == attn.dtype == torch.float32):
-        raise TypeError(f"expected float32 value, loc and attn, got {value.dtype}, "
-                        f"{loc.dtype}, {attn.dtype}")
+    if not (value.dtype in (torch.float32, torch.bfloat16)
+            and loc.dtype == attn.dtype == torch.float32):
+        raise TypeError(f"expected a float32 or bfloat16 value and float32 loc and attn, "
+                        f"got {value.dtype}, {loc.dtype}, {attn.dtype}")
     if not (value.device == loc.device == attn.device):
         raise ValueError("value, loc and attn must lie on one device")
     if value.device.type == "cpu":
@@ -126,15 +152,25 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     if out.numel() == 0:
         return out
     levels = _level_table(tuple(shapes), value.device)
+    bf16 = value.dtype == torch.bfloat16
+    if bf16:
+        width = bf16_width(hd)
+        if value.data_ptr() % (2 * width):
+            raise ValueError(f"the bf16-table route loads {width} bf16 at once at hd={hd}: "
+                             f"value must be {2 * width}-byte aligned, its address is "
+                             f"{value.data_ptr():#x}")
     with torch.cuda.device(value.device):
-        err = _kernel()(
-            value.data_ptr(), levels.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            out.data_ptr(), B, S, Q, nh, hd, L, P, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (value.data_ptr(), levels.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+                out.data_ptr(), B, S, Q, nh, hd, L, P)
+        err = _kernel_bf16()(*args, width, stream) if bf16 else _kernel()(*args, stream)
     if err:
         raise RuntimeError(f"deform_gather launch failed: CUDA error {err}")
     deform_gather.launches += 1
+    if bf16:
+        deform_gather.launches_bf16 += 1
     return out
 
 
 deform_gather.launches = 0
+deform_gather.launches_bf16 = 0

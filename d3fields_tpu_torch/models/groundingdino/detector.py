@@ -21,8 +21,8 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from d3fields_tpu_torch.models.common import imagenet_stats
-from d3fields_tpu_torch.models.groundingdino.model import GroundingDino
+from d3fields_tpu_torch.models.common import imagenet_stats, torch_dtype
+from d3fields_tpu_torch.models.groundingdino.model import GroundingDino, gated_copy
 from d3fields_tpu_torch.models.resize import bilinear_resize
 from d3fields_tpu_torch.utils.device import resolve_device
 
@@ -57,11 +57,16 @@ def tokenize_classes(
 
 class GroundingDinoDetector:
     def __init__(self, model: GroundingDino, tokenize: Callable[[str], List[int]],
-                 short_side: int = 800, max_side: int = 1333, device=None):
+                 short_side: int = 800, max_side: int = 1333, device=None,
+                 compute_dtype: str = "float32"):
         """``model`` is moved to ``device`` (CUDA unless the caller names
-        another)."""
+        another). ``compute_dtype='bfloat16'`` runs the gated trunk (Swin,
+        the input projections and the 6 encoder layers) in bf16 on a copy
+        of its weights rounded once, here; BERT, query selection, the
+        decoder and the heads stay f32 (JAX ``detector.py:87, 108-113``)."""
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
+        self.model = gated_copy(model.to(self.device).eval(), torch_dtype(compute_dtype))
         self.cfg = model.cfg
         self.tokenize = tokenize
         self.short_side = short_side

@@ -16,9 +16,17 @@ selection, and the cross-modality decoder with iterative box refinement.
   :func:`deform_gather.deform_gather`: the CUDA kernel on the card. The
   forward's ``gather=deform_gather_plain`` runs the same forward through the
   kernel's plain version, as an oracle.
-- Everything runs in float32. Host-side constants (sine tables, reference
-  grids, proposals, text masks) are numpy copies of the JAX package's, so
-  they are its values to the bit.
+- The gated trunk (Swin, the input projections with the extra level, and
+  the 6 encoder layers, vision and text) runs in the dtype of its weights:
+  float32, or bfloat16 under the detector's ``compute_dtype``
+  (:func:`gated_copy`, JAX ``model.py:600-630, 742-802``). Inside it the
+  layer and group norms, softmaxes, sampling offsets, attention weights
+  and reference points are f32, and the encoder's gather reads the bf16
+  ``value`` and returns f32. BERT, query selection, the decoder and the
+  heads are always f32.
+- Host-side constants (sine tables, reference grids, proposals, text
+  masks) are numpy copies of the JAX package's, so they are its values to
+  the bit.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d3fields_tpu_torch.models.common import embedding, linear, named
+from d3fields_tpu_torch.models.common import cast_copy, embedding, linear, named
 from d3fields_tpu_torch.models.groundingdino import bert as B
 from d3fields_tpu_torch.models.groundingdino import swin as SW
 from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
@@ -201,14 +209,15 @@ def get_sine_pos_embed(pos: Tensor, num_pos_feats: int, temperature: float = 100
 
 
 def _group_norm32(x: Tensor, w: Tensor, b: Tensor, groups: int = 32, eps: float = 1e-5):
-    """torch GroupNorm(32, C) over an NHWC map."""
+    """torch GroupNorm(32, C) over an NHWC map, in f32 and rounded back to
+    ``x``'s dtype."""
     Bn, H, W, C = x.shape
     g = min(groups, C)
-    xg = x.reshape(Bn, H, W, g, C // g)
+    xg = x.reshape(Bn, H, W, g, C // g).float()
     mu = xg.mean(dim=(1, 2, 4), keepdim=True)
     var = xg.var(dim=(1, 2, 4), keepdim=True, unbiased=False)
     xg = (xg - mu) * torch.rsqrt(var + eps)
-    return xg.reshape(Bn, H, W, C) * w + b
+    return (xg.reshape(Bn, H, W, C) * w.float() + b.float()).to(x.dtype)
 
 
 def _inverse_sigmoid(r: Tensor) -> Tensor:
@@ -269,10 +278,11 @@ class _MultiheadAttention(nn.Module):
             return t.reshape(Bn, t.shape[1], nh, hd).transpose(1, 2)
 
         q, k, v = heads(self.query(queries)), heads(self.key(keys)), heads(self.value(values))
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        # scaled in f32, as the JAX package's division by a numpy scalar promotes
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)
         if bias is not None:
             logits = logits + bias
-        probs = torch.softmax(logits, dim=-1)
+        probs = torch.softmax(logits, dim=-1).to(queries.dtype)
         return self.out_proj(torch.matmul(probs, v).transpose(1, 2).reshape(Bn, Tq, D))
 
 
@@ -307,9 +317,9 @@ class _BiAttention(nn.Module):
         attn = (attn - attn.max()).clamp(-50000, 50000)  # one max over the whole batch, as HF
         attn_t = attn.transpose(-1, -2)
         attn_t = (attn_t - attn_t.amax(-1, keepdim=True)).clamp(-50000, 50000)
-        t_probs = torch.softmax(attn_t, dim=-1)
+        t_probs = torch.softmax(attn_t.float(), dim=-1).to(text.dtype)
         attn = torch.where(text_pad_mask[:, None, None, :], -math.inf, attn)
-        v_probs = torch.softmax(attn, dim=-1)
+        v_probs = torch.softmax(attn.float(), dim=-1).to(vision.dtype)
         dv = torch.matmul(v_probs, tv).transpose(1, 2).reshape(Bn, Tv, E)
         dt = torch.matmul(t_probs, vv).transpose(1, 2).reshape(Bn, Tt, E)
         return self.out_vision_proj(dv), self.out_text_proj(dt)
@@ -330,16 +340,20 @@ class _DeformableAttention(nn.Module):
                 reference_points: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                 gather: Gather) -> Tensor:
         """hidden (B, Q, D) queries; encoder_hidden (B, S, D) values;
-        reference_points (B, Q, L, 2 or 4) normalised."""
+        reference_points (B, Q, L, 2 or 4) normalised. The sampling
+        offsets, weights and positions are f32 whatever the dtype of
+        ``hidden`` (a [0, 1] position in bf16 moves in steps of ~4 pixels
+        at the 800 scale)."""
         Bn, Q, D = hidden.shape
         S = encoder_hidden.shape[1]
         nh, L, P = self.num_heads, self.num_levels, self.num_points
         if pos is not None:
             hidden = hidden + pos
         value = self.value_proj(encoder_hidden).reshape(Bn, S, nh, D // nh)
-        offsets = self.sampling_offsets(hidden).reshape(Bn, Q, nh, L, P, 2)
-        weights = torch.softmax(self.attention_weights(hidden).reshape(Bn, Q, nh, L * P), -1)
-        weights = weights.reshape(Bn, Q, nh, L, P)
+        offsets = self.sampling_offsets(hidden).float().reshape(Bn, Q, nh, L, P, 2)
+        weights = self.attention_weights(hidden).float().reshape(Bn, Q, nh, L * P)
+        weights = torch.softmax(weights, -1).reshape(Bn, Q, nh, L, P)
+        reference_points = reference_points.float()
         if reference_points.shape[-1] == 2:
             normalizer = torch.as_tensor([[w, h] for h, w in spatial_shapes],
                                          dtype=torch.float32, device=hidden.device)
@@ -348,7 +362,7 @@ class _DeformableAttention(nn.Module):
         else:
             loc = (reference_points[:, :, None, :, None, :2]
                    + offsets / P * reference_points[:, :, None, :, None, 2:] * 0.5)
-        return self.output_proj(gather(value, spatial_shapes, loc, weights))
+        return self.output_proj(gather(value, spatial_shapes, loc, weights).to(hidden.dtype))
 
 
 class _EncoderLayer(nn.Module):
@@ -469,9 +483,14 @@ class GroundingDino(nn.Module):
             encoder_output_bbox_embed=_MLPHead(d, d, 4, 3, dev))
         self.model.level_embed = nn.Parameter(torch.empty(L, d, device=dev))
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype of the gated trunk (:func:`gated_copy`)."""
+        return self.model.input_proj_vision[0][0].weight.dtype
+
     def _vision_maps(self, pixels: Tensor) -> List[Tensor]:
         """Swin's stages through the input projections, plus the extra
-        stride-2 levels: NHWC maps of width d_model."""
+        stride-2 levels: NHWC maps of width d_model, in the trunk's dtype."""
         m = self.model
         feats = m.backbone.conv_encoder.model(pixels)
         maps = []
@@ -529,12 +548,16 @@ class GroundingDino(nn.Module):
         ref = torch.as_tensor(_encoder_reference_points(spatial_shapes), device=dev)
         ref = ref[None, :, None, :].expand(Bn, -1, L, 2)
 
+        # the encoder runs in the trunk's dtype; everything after it in f32
+        dt = self.compute_dtype
         text_pos = get_sine_pos_embed(text_position_ids[..., None].float(), cfg.d_model,
-                                      exchange_xy=False)
+                                      exchange_xy=False).to(dt)
         text_self_bias = torch.where(text_self_mask[:, None], 0.0, -1e30)
+        vision, text, pos = vision.to(dt), text.to(dt), pos.to(dt)
         for layer in m.encoder.layers:
             vision, text = layer(vision, text, pos, ref, spatial_shapes, text_self_bias,
                                  text_pad_mask, text_pos, gather)
+        vision, text = vision.float(), text.float()
 
         # language-guided query selection (two-stage)
         props_np, valid_np = _grid_proposals(spatial_shapes)
@@ -567,6 +590,18 @@ class GroundingDino(nn.Module):
         # reference points that entered the last layer
         boxes = torch.sigmoid(head(final_hidden) + _inverse_sigmoid(ref_into_last))
         return logits, boxes
+
+
+# the parameters of the gated trunk (JAX ``model.py:612-626, 742-790``)
+TRUNK = ("model.backbone.", "model.input_proj_vision.", "model.encoder.")
+
+
+def gated_copy(model: GroundingDino, dtype: torch.dtype) -> GroundingDino:
+    """``model`` with its gated trunk (Swin, the input projections and the
+    encoder layers) rounded to ``dtype`` once; BERT, query selection, the
+    decoder and the heads share ``model``'s f32 weights. ``model`` itself
+    when ``dtype`` is float32."""
+    return cast_copy(model, dtype, TRUNK)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,11 @@ in the JAX package:
 
 800×1067 is a multiple of neither 4 nor 7, so all three paddings run on
 the detector's real input.
+
+The trunk runs in the dtype of its weights (bf16 under the detector's
+bf16 compute dtype, JAX ``model.py:742-790``): the LayerNorms take their
+statistics and their affine in f32 and round once, and the window
+attention's logits are scaled, biased and soft-maxed in f32.
 """
 
 from __future__ import annotations
@@ -103,12 +108,13 @@ class _WindowSelfAttention(nn.Module):
             return t.reshape(B, nw, T, nh, hd).permute(0, 1, 3, 2, 4)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        # scaled in f32, as the JAX package's division by a numpy scalar promotes
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         logits = logits + bias.reshape(T, T, nh).permute(2, 0, 1)[None, None]
         if mask is not None:
             logits = logits + mask[None, :, None]
-        probs = torch.softmax(logits, dim=-1)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
         return torch.matmul(probs, v).permute(0, 1, 3, 2, 4).reshape(B, nw, T, C)
 
 
@@ -201,11 +207,11 @@ class Swin(nn.Module):
         cfg = self.cfg
         P, D, ws = cfg.patch_size, cfg.embed_dim, cfg.window_size
         B, H, W, _ = pixels.shape
-        pixels = F.pad(pixels, (0, 0, 0, (-W) % P, 0, (-H) % P))
+        proj = self.embeddings.patch_embeddings.projection
+        pixels = F.pad(pixels.to(proj.weight.dtype), (0, 0, 0, (-W) % P, 0, (-H) % P))
         gh, gw = pixels.shape[1] // P, pixels.shape[2] // P
         # patch embedding as a matrix product over (c, py, px), the conv weight's order
         x = pixels.reshape(B, gh, P, gw, P, 3).permute(0, 1, 3, 5, 2, 4)
-        proj = self.embeddings.patch_embeddings.projection
         x = F.linear(x.reshape(B, gh * gw, 3 * P * P), proj.weight.reshape(D, 3 * P * P),
                      proj.bias)
         x = self.embeddings.norm(x)

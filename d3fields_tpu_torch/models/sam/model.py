@@ -17,6 +17,11 @@ weights as the JAX package's ``random_params_direct`` does.
   the iterative refinement of upstream SAM's ``mask_input``.
 - Layouts are NHWC, as in the JAX package. Patch embedding and the
   decoder's 2x2 transposed convolutions are matrix products.
+- The ViT trunk (patch embedding, positions, layers) runs in the dtype of
+  its weights: float32, or bfloat16 under the predictor's
+  ``compute_dtype`` (:func:`trunk_copy`, JAX ``model.py:172-225``), with
+  the LayerNorm statistics and the attention softmax in f32. The neck, the
+  prompt encoder and the mask decoder are always f32.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d3fields_tpu_torch.models.common import embedding, linear, named
+from d3fields_tpu_torch.models.common import cast_copy, embedding, linear, named
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -140,7 +145,7 @@ class _VisionAttention(nn.Module):
         logits = torch.matmul(q * (hd ** -0.5), k.transpose(-1, -2))
         # in place: a global layer's (B*nh, 4096, 4096) logits are 1 GB a view
         logits.add_(_rel_pos_bias((h, w), self.rel_pos_h, self.rel_pos_w, q))
-        probs = torch.softmax(logits, dim=-1)
+        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         out = torch.matmul(probs, v).reshape(B, nh, h, w, hd).permute(0, 2, 3, 1, 4)
         return self.proj(out.reshape(B, h, w, C))
 
@@ -334,19 +339,21 @@ class Sam(nn.Module):
     # ---- image encoder -------------------------------------------------
 
     def encode(self, pixels: Tensor) -> Tensor:
-        """pixels (B, S, S, 3) preprocessed -> image embeddings (B, h, w, C)."""
+        """pixels (B, S, S, 3) preprocessed -> image embeddings (B, h, w, C),
+        f32. The trunk runs in its weights' dtype, the neck in f32."""
         cfg, ve = self.cfg, self.vision_encoder
         P, D = cfg.patch_size, cfg.hidden_size
         B, H, W, _ = pixels.shape
         gh, gw = H // P, W // P
-        # patch embedding as a matrix product over (c, py, px), the conv weight's order
-        x = pixels.reshape(B, gh, P, gw, P, 3).permute(0, 1, 3, 5, 2, 4)
         proj = ve.patch_embed.projection
+        # patch embedding as a matrix product over (c, py, px), the conv weight's order
+        x = pixels.reshape(B, gh, P, gw, P, 3).permute(0, 1, 3, 5, 2, 4).to(proj.weight.dtype)
         x = F.linear(x.reshape(B, gh, gw, 3 * P * P), proj.weight.reshape(D, 3 * P * P),
                      proj.bias)
         x = x + ve.pos_embed
         for layer in ve.layers:
             x = layer(x)
+        x = x.float()
         neck = ve.neck
         x = neck.layer_norm1(F.linear(x, neck.conv1.weight[:, :, 0, 0]))
         x = F.conv2d(x.permute(0, 3, 1, 2), neck.conv2.weight, padding=1).permute(0, 2, 3, 1)
@@ -463,6 +470,17 @@ class Sam(nn.Module):
 # ---------------------------------------------------------------------------
 # weights
 # ---------------------------------------------------------------------------
+
+# the parameters of the ViT trunk (JAX ``model.py:193-209``)
+TRUNK = ("vision_encoder.patch_embed.", "vision_encoder.pos_embed", "vision_encoder.layers.")
+
+
+def trunk_copy(model: Sam, dtype: torch.dtype) -> Sam:
+    """``model`` with its ViT trunk rounded to ``dtype`` once; the neck, the
+    prompt encoder and the mask decoder share ``model``'s f32 weights.
+    ``model`` itself when ``dtype`` is float32."""
+    return cast_copy(model, dtype, TRUNK)
+
 
 def init_params(cfg: SamConfig, generator: Optional[torch.Generator] = None,
                 *, device=None) -> Sam:

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from d3fields_tpu_torch.models.resize import bilinear_resize, bilinear_resize_exact
-from d3fields_tpu_torch.models.sam.model import Sam
+from d3fields_tpu_torch.models.common import torch_dtype
+from d3fields_tpu_torch.models.sam.model import Sam, trunk_copy
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -37,11 +38,16 @@ class SamPredictor:
     then ``predict_boxes_views(boxes per view)``, or ``set_image`` and
     ``predict_boxes`` for one image."""
 
-    def __init__(self, model: Sam, device=None):
+    def __init__(self, model: Sam, device=None, compute_dtype: str = "float32"):
         """``model`` is moved to ``device`` (CUDA unless the caller names
-        another)."""
+        another). ``compute_dtype='bfloat16'`` runs the ViT trunk in bf16 on
+        a copy of its weights rounded once, here; the neck, the prompt
+        encoder and the mask decoder keep f32 values and weights (JAX
+        ``predictor.py:103-116``; its lifted matmul-precision pin on the
+        decoder is a TPU setting with no counterpart here)."""
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
+        self.model = trunk_copy(model.to(self.device).eval(), torch_dtype(compute_dtype))
         self.cfg = model.cfg
         self._image_embs = None
         self._orig_hw: Tuple[int, int] = (0, 0)

@@ -15,8 +15,13 @@ Unsynchronized (``deep_update_every > 0``): the decoder GRU updates the
 hidden every frame, and a memory frame also adopts the value encoder's
 reinforced hidden once ti - last_deep_update_ti >= deep_update_every.
 
-Everything runs in float32 (the JAX package's bf16 ``compute_dtype`` is not
-ported) without autograd.
+The networks run in the dtype of the model's weights: ``XMemConfig.
+compute_dtype`` 'bfloat16' makes :class:`XMemCore` round a copy of them to
+bf16 once, at construction (JAX ``core.py:300-317``). The key encoder, the
+decoder and the value encoder then take bf16 images, hidden states and
+readouts; the memory keeps f32 keys, values and hidden states, the memory
+read takes f32 queries, and the probabilities come back f32. Nothing here
+records autograd.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from d3fields_tpu_torch.config import XMemConfig
+from d3fields_tpu_torch.models.common import cast_copy, torch_dtype
 from d3fields_tpu_torch.models.xmem import blocks as B
 from d3fields_tpu_torch.models.xmem import memory as M
 from d3fields_tpu_torch.models.xmem.network import XMem
@@ -43,9 +49,14 @@ def _flatten_key(key: Tensor, shrinkage: Optional[Tensor], selection: Optional[T
     return k, s, e
 
 
-def _nchw(images: Tensor) -> Tensor:
-    """(V, H, W, 3) -> (V, 3, H, W)."""
-    return images.permute(0, 3, 1, 2).contiguous()
+def _nchw(images: Tensor, dtype: torch.dtype) -> Tensor:
+    """(V, H, W, 3) -> (V, 3, H, W) in the networks' dtype."""
+    return images.permute(0, 3, 1, 2).to(dtype).contiguous()
+
+
+def _dtype(model: XMem) -> torch.dtype:
+    """The dtype the networks compute in: their weights'."""
+    return model.key_proj.key_proj.weight.dtype
 
 
 def _values(value: Tensor) -> Tensor:
@@ -61,11 +72,13 @@ def seed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob: T
     images (V, H, W, 3) normalised, H and W multiples of 16; mask_prob
     (V, O, H, W) in [0, 1], no background. Returns the probabilities with
     background (V, O+1, H, W); writes the memory in place."""
-    img = _nchw(images)
+    dt = _dtype(model)
+    img = _nchw(images, dt)
     key, shrinkage, selection, f16, _, _ = model.encode_key(img)
     prob = B.soft_aggregate(mask_prob, dim=1)
-    value, hidden = model.encode_value(img, f16, mem.hidden, prob[:, 1:], is_deep_update=True)
-    mem.hidden = hidden
+    value, hidden = model.encode_value(img, f16, mem.hidden.to(dt), prob[:, 1:].to(dt),
+                                       is_deep_update=True)
+    mem.hidden = hidden.float()
     k, s, e = _flatten_key(key, shrinkage, selection)
     M.add_memory(mem, k, s, _values(value), e)
     return prob
@@ -82,28 +95,31 @@ def propagate_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, is_mem_
     decoder GRU updates the hidden every frame and ``is_deep_update``
     says whether a memory frame also adopts the value encoder's reinforced
     hidden. Returns (V, O+1, H, W); writes the memory in place."""
-    img = _nchw(images)
+    dt = _dtype(model)
+    img = _nchw(images, dt)
     key, shrinkage, selection, f16, f8, f4 = model.encode_key(img)
     qk, _, qe = _flatten_key(key, None, selection)
-    readout = M.match_memory(mem, qk, qe)
+    readout = M.match_memory(mem, qk.float(), qe.float())
     V, O, CV = readout.shape[:3]
     readout = readout.reshape(V, O, CV, key.shape[2], key.shape[3])
     # the decoder's hidden is used on normal frames, and on every frame
     # without sync
     dec_hidden, _, prob = model.segment(
-        f16, f8, f4, mem.hidden, readout, h_out=(not sync) or (not is_mem_frame),
+        f16, f8, f4, mem.hidden.to(dt), readout.to(dt),
+        h_out=(not sync) or (not is_mem_frame),
         obj_active=mem.active if mem.multi_group else None)
     if not sync:
         # adopted before the value encoder runs (inference_core.py:70-71,97-99)
-        mem.hidden = dec_hidden
+        mem.hidden = dec_hidden.float()
     if is_mem_frame:
-        value, hidden = model.encode_value(img, f16, mem.hidden, prob[:, 1:], is_deep_update=True)
+        value, hidden = model.encode_value(img, f16, mem.hidden.to(dt), prob[:, 1:].to(dt),
+                                           is_deep_update=True)
         if sync or is_deep_update:
-            mem.hidden = hidden
+            mem.hidden = hidden.float()
         k, s, e = _flatten_key(key, shrinkage, selection)
         M.add_memory(mem, k, s, _values(value), e)
     elif sync:
-        mem.hidden = dec_hidden
+        mem.hidden = dec_hidden.float()
     return prob
 
 
@@ -122,16 +138,17 @@ def reseed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob:
     ``adopt_deep`` (default True) says whether the value encoder's
     reinforced hidden replaces the current one: False on an unsynchronized
     schedule that has not elapsed (``inference_core.py:51-55``)."""
-    img = _nchw(images)
+    dt = _dtype(model)
+    img = _nchw(images, dt)
     key, shrinkage, selection, f16, f8, f4 = model.encode_key(img)
     qk, _, qe = _flatten_key(key, None, selection)
-    readout = M.match_memory(mem, qk, qe, count_usage=False)
+    readout = M.match_memory(mem, qk.float(), qe.float(), count_usage=False)
     V, O, CV = readout.shape[:3]
     readout = readout.reshape(V, O, CV, key.shape[2], key.shape[3])
     # without sync a mask-given frame that segments also adopts the
     # decoder's hidden for the active objects (inference_core.py:56,70-71)
-    dec_hidden, _, prob_pred = model.segment(f16, f8, f4, mem.hidden, readout, h_out=not sync,
-                                             obj_active=mem.active)
+    dec_hidden, _, prob_pred = model.segment(f16, f8, f4, mem.hidden.to(dt), readout.to(dt),
+                                             h_out=not sync, obj_active=mem.active)
     zero = torch.zeros((), device=img.device)
     active = mem.active                                        # (V, O)
     provided = provided.to(img.device).expand_as(active)
@@ -148,11 +165,13 @@ def reseed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob:
         # the reference segments (and adopts the decoder's hidden) only
         # when some active object is not provided (inference_core.py:49)
         need_seg = torch.any(active & ~provided, dim=1)        # (V,)
-        base_hidden = torch.where(need_seg[:, None, None, None, None], dec_hidden, mem.hidden)
+        base_hidden = torch.where(need_seg[:, None, None, None, None], dec_hidden.float(),
+                                  mem.hidden)
     hidden0 = torch.where((entering | ~active)[..., None, None, None], zero, base_hidden)
     M.activate_objects(mem, provided)
-    value, hidden = model.encode_value(img, f16, hidden0, prob[:, 1:], is_deep_update=True)
-    mem.hidden = hidden if adopt_deep is None or adopt_deep else hidden0
+    value, hidden = model.encode_value(img, f16, hidden0.to(dt), prob[:, 1:].to(dt),
+                                       is_deep_update=True)
+    mem.hidden = hidden.float() if adopt_deep is None or adopt_deep else hidden0
     k, s, e = _flatten_key(key, shrinkage, selection)
     M.add_memory(mem, k, s, _values(value), e)
     return prob
@@ -167,16 +186,14 @@ class XMemCore:
         """``multi_group=True`` preallocates ``num_objects`` slots of which
         any subset may be seeded by a mask-given step: objects may enter
         mid-video. ``device`` defaults to CUDA and raises when no GPU is
-        visible; the model is moved there."""
+        visible; the model is moved there. ``cfg.compute_dtype`` 'bfloat16'
+        runs the networks on a copy of the model's weights rounded to bf16
+        here, once; the memory stays f32."""
         H, W = image_hw
         if H % 16 or W % 16:
             raise ValueError("image must be pre-padded to multiples of 16")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "d3fields_tpu_torch runs XMem in float32 only; the bf16 "
-                f"compute_dtype {cfg.compute_dtype!r} is not ported")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = cast_copy(model.to(self.device).eval(), torch_dtype(cfg.compute_dtype))
         # deep_update_every < 0: deep updates ride memory frames (the
         # d3fields configuration); >= 0: an explicit schedule
         self.deep_update_sync = cfg.deep_update_every < 0

@@ -245,7 +245,10 @@ class FusedFrameStep:
     The tracker must be seeded (first frame through ``tracker.process(rgb,
     mask)``); this step covers the propagation frames that follow. It runs
     the same functions as the staged ``update -> text_queries ->
-    rigid_tracking_steps`` loop, in the same order.
+    rigid_tracking_steps`` loop, in the same order, in the backbone's and
+    the tracker's compute dtypes (JAX ``serving.py:459-460``): a bf16
+    backbone or ``XMemConfig(compute_dtype='bfloat16')`` give f32 tokens
+    and probabilities, so the field and the tracking loop stay f32.
     """
 
     def __init__(self, backbone, tracker, depth, pose, K, bounds_lo, bounds_hi,

@@ -10,9 +10,12 @@
   apps run through ``apps/_backends.py`` against the JAX apps on the same
   files: ``vis_repr`` at the goldens' tolerances, ``vis_tracking``'s staged
   loop (XMem propagation) at tests/test_torch_serving.py's tolerances for
-  the same stages. The JAX side builds DINOv2 in float32 here (the port's
-  precision; JAX's app builds it in bfloat16). ``--fused`` and ``--fused
-  --segment 2`` are held to the port's staged loop at 1e-5.
+  the same stages. Both packages' backends build DINOv2 in bfloat16; these
+  cases run both in float32 (a backbone shim on each side), where the
+  goldens' tolerances hold, and a bf16 case runs ``vis_repr`` as both
+  backends build it, held to the DINOv2 bf16 budget on the features.
+  ``--fused`` and ``--fused --segment 2`` are held to the port's staged
+  loop at 1e-5.
 """
 
 import functools
@@ -163,14 +166,29 @@ def recorded(tmp_path_factory):
 
 
 class _Float32Backbone(jd2.Dinov2Backbone):
-    """The JAX backbone at the port's precision (its app asks bfloat16)."""
+    """The JAX backbone in float32 (its app asks bfloat16)."""
 
     def __init__(self, params, cfg, compute_dtype="float32", *args, **kwargs):
         super().__init__(params, cfg, "float32", *args, **kwargs)
 
 
+class _TorchFloat32Backbone(td2.Dinov2Backbone):
+    """The port's backbone in float32 (its app asks bfloat16, as JAX's)."""
+
+    def __init__(self, model, *, compute_dtype="float32", **kwargs):
+        super().__init__(model, compute_dtype="float32", **kwargs)
+
+
 @pytest.fixture
-def recorded_env(recorded, monkeypatch):
+def recorded_env(recorded_env_bf16, monkeypatch):
+    """``recorded_env_bf16`` with both packages' DINOv2 in float32."""
+    monkeypatch.setattr(jd2, "Dinov2Backbone", _Float32Backbone)
+    monkeypatch.setattr(td2, "Dinov2Backbone", _TorchFloat32Backbone)
+    return recorded_env_bf16
+
+
+@pytest.fixture
+def recorded_env_bf16(recorded, monkeypatch):
     """``D3F_*`` pointed at the files, and the tiny configs in place of the
     production ones in both packages (test-side only)."""
     for var, path in recorded["env"].items():
@@ -178,7 +196,6 @@ def recorded_env(recorded, monkeypatch):
     monkeypatch.setenv("D3F_COMPILE_CACHE", "0")
     monkeypatch.setattr(td2.Dinov2Config, "vit_large", staticmethod(td2.Dinov2Config.tiny_test))
     monkeypatch.setattr(jd2.Dinov2Config, "vit_large", staticmethod(jd2.Dinov2Config.tiny_test))
-    monkeypatch.setattr(jd2, "Dinov2Backbone", _Float32Backbone)
     monkeypatch.setattr(tsam, "_ENCODER_WIDTHS", {32: tsam.SamConfig.tiny_test})
     monkeypatch.setattr(jsam, "_ENCODER_WIDTHS", {32: jsam.SamConfig.tiny_test})
     monkeypatch.setattr(tgd, "_TRUNKS", {8: ("tiny", tgd.GroundingDinoConfig.tiny_test)})
@@ -233,6 +250,47 @@ def test_vis_repr_recorded_scene_matches_jax(tmp_path, recorded_env):
     np.testing.assert_allclose(got["desc_pca"], want["desc_pca"], atol=1e-3)
 
 
+def test_vis_repr_recorded_scene_bf16_matches_jax(tmp_path, recorded_env_bf16, monkeypatch):
+    """``vis_repr --data_path`` with the backends as both packages build
+    them: DINOv2 in bf16. The descriptors each app computes are held to
+    tests/test_dinov2.py:99-108's bf16 budget (patch-token cosine deficit
+    below 1e-3) and come back f32; the field, mesh and masks, which the
+    descriptors do not reach, at the goldens' tolerances. Colour and PCA
+    descriptors are projections of the bf16 descriptors and are not held
+    past their shapes."""
+    scene = recorded_env_bf16["scene"]
+    thr = _box_threshold(scene)
+    feats = {"port": [], "jax": []}
+    for key, module in (("port", td2), ("jax", jd2)):
+        call = module.Dinov2Backbone.__call__
+
+        def spy(self, *args, _call=call, _key=key, **kwargs):
+            assert self.compute_dtype == "bfloat16"
+            out = _call(self, *args, **kwargs)
+            feats[_key].append(np.asarray(out))
+            return out
+
+        monkeypatch.setattr(module.Dinov2Backbone, "__call__", spy)
+    argv = ["--data_path", scene, "--t", "0", "--query_texts", "ball", "--query_thresholds",
+            str(thr), "--step", "0.015", *REPR_BOUNDS]
+    got, want = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    assert vis_repr.main(argv + ["--out", str(tmp_path / "port"), "--dump_arrays", got],
+                         device="cpu") == 0
+    assert jvis_repr.main(argv + ["--out", str(tmp_path / "jax"), "--dump_arrays", want]) == 0
+    (a,), (b,) = feats["port"], feats["jax"]
+    assert a.dtype == np.float32 and a.shape == b.shape
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12)
+    assert (1 - cos).max() < 1e-3, (1 - cos).max()
+    got, want = np.load(got), np.load(want)
+    np.testing.assert_allclose(got["dist"], want["dist"], atol=1e-4)
+    np.testing.assert_array_equal(got["triangles"], want["triangles"])
+    np.testing.assert_allclose(got["vertices"], want["vertices"], atol=1e-3)
+    np.testing.assert_allclose(got["mask"], want["mask"], atol=1e-4)
+    for k in ("color", "desc_pca"):
+        assert got[k].shape == want[k].shape and np.isfinite(got[k]).all(), k
+
+
 def test_vis_repr_scene_resolves_under_data_root(tmp_path, monkeypatch):
     """``--scene mug --data_root R`` reads R/<the mug scene's directory>,
     with the scene table's query and threshold, as the JAX app does."""
@@ -282,7 +340,8 @@ def _device_resize_backbone(monkeypatch):
 
     def device_mode(*args, **kwargs):
         fb = build(*args, **kwargs)
-        return td2.Dinov2Backbone(fb.model, resize_mode="device", device=fb.device)
+        return td2.Dinov2Backbone(fb.model, compute_dtype=fb.compute_dtype,
+                                  resize_mode="device", device=fb.device)
 
     monkeypatch.setattr(TB, "build_feature_backend", device_mode)
 
@@ -326,10 +385,11 @@ def test_vis_tracking_fused_and_segment_equal_the_staged_loop(tmp_path, recorded
     assert np.isfinite(outs["staged"][0]).all()
 
 
-def test_vis_tracking_fused_rebuilds_the_backbone_for_device_resize(tmp_path, recorded_env,
+def test_vis_tracking_fused_rebuilds_the_backbone_for_device_resize(tmp_path, recorded_env_bf16,
                                                                     monkeypatch):
     """The loaded backbone resizes as Pillow does; --fused wraps the same
-    model in a 'device'-resize backbone for FusedFrameStep."""
+    model, in the same compute dtype (bf16, as the backend builds it), in a
+    'device'-resize backbone for FusedFrameStep."""
     _sphere_masks(monkeypatch)
     seen = []
     init = serving.FusedFrameStep.__init__
@@ -340,10 +400,12 @@ def test_vis_tracking_fused_rebuilds_the_backbone_for_device_resize(tmp_path, re
 
     monkeypatch.setattr(serving.FusedFrameStep, "__init__", spy)
     out = str(tmp_path / "fused")
-    argv = ["--data_path", recorded_env["scene"], "--frames", "2", "--fused", *TRACK_ARGS]
+    argv = ["--data_path", recorded_env_bf16["scene"], "--frames", "2", "--fused", *TRACK_ARGS]
     assert vis_tracking.main(argv + ["--out", out], device="cpu") == 0
     (bb, kwargs), = seen
     assert bb.resize_mode == "device" and bb.pos_interpolate == "hub"
+    assert bb.compute_dtype == "bfloat16"
+    assert bb.model.blocks[0].attn.qkv.weight.dtype == torch.bfloat16
     assert kwargs["xmem_bgr_to_rgb"] is True
     assert np.isfinite(_tracking_outputs(out, 2)[0]).all()
 

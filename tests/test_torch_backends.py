@@ -13,7 +13,10 @@ package's.
   the production ones in the variant tables, on both sides, in the test only.
 - The audit drops what the JAX allow-list covers and refuses anything
   else; the tokenizer's ids equal the JAX tokenizer's and huggingface
-  ``BertTokenizer``'s; missing checkpoints and bf16 dtypes raise.
+  ``BertTokenizer``'s; missing checkpoints raise. DINOv2 is built in bf16,
+  as the JAX backend builds it, and ``D3F_SAM_DTYPE`` / ``D3F_GDINO_DTYPE``
+  select SAM's and GroundingDINO's compute dtypes as in the JAX package;
+  any other value raises.
 """
 
 import dataclasses
@@ -158,7 +161,15 @@ def _jax_params(family, sd):
 def _load_port(family, path, monkeypatch):
     """The port's module, built by _backends from ``path`` on the CPU."""
     if family == "dinov2_hub":
-        return TB.build_feature_backend(path, device="cpu").model
+        # the f32 model the loader returns is held bit for bit; the backend
+        # runs a bf16 copy of it, as JAX _backends.py:88 builds DINOv2
+        model = TB.load_dinov2(path, "cpu")
+        backbone = TB.build_feature_backend(path, device="cpu")
+        assert backbone.compute_dtype == "bfloat16"
+        f32 = model.state_dict()
+        for k, v in backbone.model.state_dict().items():
+            torch.testing.assert_close(v, f32[k].to(v.dtype), rtol=0, atol=0, msg=k)
+        return model
     if family == "sam":
         return TB.load_sam(path, "cpu")
     if family == "gdino":
@@ -299,8 +310,41 @@ def test_missing_checkpoints_and_bf16_raise(tmp_path, monkeypatch):
         (tmp_path / f).write_bytes(b"")
     monkeypatch.setenv("D3F_SAM_CKPT", str(tmp_path / "s.pth"))
     monkeypatch.setenv("D3F_GDINO_CKPT", str(tmp_path / "g.pth"))
+    # the dtype variables are read before the checkpoints: a bad value
+    # raises, naming the variable
     for var in ("D3F_SAM_DTYPE", "D3F_GDINO_DTYPE"):
-        monkeypatch.setenv(var, "bfloat16")
-        with pytest.raises(NotImplementedError, match=f"{var}=bfloat16.*ROADMAP"):
+        monkeypatch.setenv(var, "float16")
+        with pytest.raises(ValueError, match=f"{var}='float16'"):
             TB.build_mask_backend(device="cpu")
         monkeypatch.delenv(var)
+
+
+@pytest.mark.parametrize("sam_dtype, gdino_dtype", [(None, None), ("bfloat16", None),
+                                                     (None, "bfloat16"),
+                                                     ("bfloat16", "bfloat16")])
+def test_mask_backend_dtypes_follow_the_environment(tmp_path, monkeypatch, tiny_tables,
+                                                    sam_dtype, gdino_dtype):
+    """``D3F_SAM_DTYPE`` / ``D3F_GDINO_DTYPE`` (unset: float32) build the
+    predictor and the detector in that dtype, as JAX ``_backends.py:127-151``
+    passes them on: the SAM ViT trunk and the GroundingDINO gated trunk
+    rounded to bf16, the decoders and heads f32."""
+    paths = {}
+    for family, var in (("sam", "D3F_SAM_CKPT"), ("gdino", "D3F_GDINO_CKPT")):
+        paths[var] = tmp_path / f"{family}.pth"
+        torch.save(_reference_state_dict(family)[0], paths[var])
+        monkeypatch.setenv(var, str(paths[var]))
+    for var, dtype in (("D3F_SAM_DTYPE", sam_dtype), ("D3F_GDINO_DTYPE", gdino_dtype)):
+        if dtype is not None:
+            monkeypatch.setenv(var, dtype)
+    backend = TB.build_mask_backend(device="cpu")
+    want = {None: torch.float32, "bfloat16": torch.bfloat16}
+    sam, gdino = backend.sam.model, backend.detector.model
+    assert backend.sam.compute_dtype == (sam_dtype or "float32")
+    assert backend.detector.compute_dtype == (gdino_dtype or "float32")
+    assert sam.vision_encoder.layers[0].attn.qkv.weight.dtype == want[sam_dtype]
+    assert sam.vision_encoder.neck.conv1.weight.dtype == torch.float32
+    assert sam.mask_decoder.iou_token.weight.dtype == torch.float32
+    assert gdino.compute_dtype == want[gdino_dtype]
+    assert gdino.model.encoder.layers[0].deformable_layer.fc1.weight.dtype == want[gdino_dtype]
+    assert gdino.model.decoder.layers[0].fc1.weight.dtype == torch.float32
+    assert gdino.model.text_backbone.embeddings.word_embeddings.weight.dtype == torch.float32

@@ -95,6 +95,45 @@ def test_backbone_end_to_end_matches_jax(jax_params, port_model, rng, resize_mod
     assert _cos_deficit(out, ref) < 1e-3
 
 
+@pytest.mark.parametrize("hw", [(56, 56), (42, 70)])
+def test_bf16_forward_tokens_matches_jax_bf16(jax_params, port_model, rng, hw):
+    """``Dinov2Backbone(compute_dtype='bfloat16')``'s transformer against
+    JAX ``forward_tokens(..., 'bfloat16')``, and against the port's f32,
+    under tests/test_dinov2.py:99-108's budget: patch-token cosine deficit
+    below 1e-3. The tokens come back f32; the backbone rounds a copy of
+    the weights and keeps the positional table f32."""
+    pixels = rng.standard_normal((2,) + hw + (3,)).astype(np.float32)
+    gh, gw = hw[0] // 14, hw[1] // 14
+    jbb = jd2.Dinov2Backbone({k: jnp.asarray(v) for k, v in jax_params.items()}, CFG,
+                             compute_dtype="bfloat16")
+    tbb = td2.Dinov2Backbone(port_model, compute_dtype="bfloat16", device="cpu")
+    assert tbb.model.blocks[0].mlp.fc1.weight.dtype == torch.bfloat16
+    assert tbb.model.pos_embed.dtype == torch.float32
+    assert port_model.blocks[0].mlp.fc1.weight.dtype == torch.float32
+    pos = np.asarray(jbb.interpolated_pos_embed(gh, gw))
+    np.testing.assert_array_equal(tbb.interpolated_pos_embed(gh, gw).numpy(), pos)
+    ref = np.asarray(jd2.forward_tokens(jbb.params, jnp.asarray(pixels), jnp.asarray(pos),
+                                        CFG.num_heads, "bfloat16"))
+    out = _tokens(tbb.model, pixels, pos)
+    assert out.dtype == np.float32
+    assert _cos_deficit(out[:, 1:], ref[:, 1:]) < 1e-3
+    assert _cos_deficit(out[:, 1:], _tokens(port_model, pixels, pos)[:, 1:]) < 1e-3
+
+
+def test_bf16_backbone_end_to_end_matches_jax_bf16(jax_params, port_model, rng):
+    """The recorded-scene backend's configuration (Pillow resize, bf16)
+    end to end against the JAX backbone at bf16."""
+    imgs = rng.integers(0, 255, size=(3, 40, 60, 3), dtype=np.uint8)
+    jbb = jd2.Dinov2Backbone({k: jnp.asarray(v) for k, v in jax_params.items()}, CFG,
+                             compute_dtype="bfloat16")
+    tbb = td2.Dinov2Backbone(port_model, compute_dtype="bfloat16", device="cpu")
+    out, ref = tbb(imgs).numpy(), np.asarray(jbb(imgs))
+    assert out.shape == (3, 4, 6, 64) and out.dtype == np.float32
+    assert _cos_deficit(out, ref) < 1e-3
+    with pytest.raises(ValueError, match="compute_dtype"):
+        td2.Dinov2Backbone(port_model, compute_dtype="float16", device="cpu")
+
+
 def test_convert_hf_state_dict_matches_jax_conversion(hf_model, rng):
     cfg = jd2.Dinov2Config(hidden_size=64, num_layers=3, num_heads=4, image_size=56,
                            layerscale_init=0.5)

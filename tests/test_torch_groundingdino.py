@@ -100,6 +100,38 @@ def test_deform_gather_matches_jax_core_and_pallas_kernel(B, levels, nh, hd, P, 
     np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=1e-6)
 
 
+# chip_smoke.GATHER_SHAPES' "edge" (hd = 8: one 16-byte bf16 load a corner
+# row) and "hd12" (8-byte loads, 3 lanes a row) for the bf16-table route
+BF16_GATHER_CASES = {
+    "edge": (2, ((13, 17), (7, 9), (4, 5)), 4, 8, 4, 333, (-0.2, 1.2)),
+    "hd12": (2, ((13, 17), (7, 9)), 4, 12, 4, 500, (-0.2, 1.2)),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_GATHER_CASES))
+def test_deform_gather_bf16_table_matches_pallas_kernel(case):
+    """A bf16 ``value`` (the encoder under compute_dtype='bfloat16') against
+    the Pallas kernel in interpret mode on corner tables that JAX builds from
+    the same bf16 values; one sample position is NaN, which makes its row
+    NaN in both. The inputs are exact in bf16 and both sum in f32: only the
+    order of the sum differs."""
+    B, levels, nh, hd, P, Q, loc_range = BF16_GATHER_CASES[case]
+    value, loc, wgt = _gather_case(B, levels, nh, hd, P, Q, loc_range, seed=11)
+    loc[1, 7, 2, 0, 1, 0] = np.nan
+    v16 = torch.as_tensor(value).to(torch.bfloat16)
+    got = tdg.deform_gather(v16, levels, torch.as_tensor(loc), torch.as_tensor(wgt))
+    assert got.dtype == torch.float32 and got.shape == (B, Q, nh * hd)
+    jv16 = jnp.asarray(v16.float().numpy()).astype(jnp.bfloat16)
+    tables = concat_corner_tables(jv16, levels)
+    assert tables.dtype == jnp.bfloat16
+    pallas = np.asarray(deformable_gather_pallas(tables, levels, jnp.asarray(loc),
+                                                 jnp.asarray(wgt), interpret=True))
+    nan_rows = np.isnan(got.numpy()).any(-1)
+    assert nan_rows.sum() == 1 and nan_rows[1, 7]
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(pallas))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-6)
+
+
 def test_deform_gather_rejects_what_the_kernel_does_not_take():
     value, loc, wgt = (torch.as_tensor(a) for a in
                        _gather_case(1, ((4, 5),), 2, 4, 2, 3, (0, 1), seed=0))
@@ -133,6 +165,24 @@ def test_deform_gather_kernel_matches_plain(cuda, case):
     assert tdg.deform_gather.launches == before + 1
     torch.testing.assert_close(out, tdg.deform_gather_plain(value, levels, loc, wgt),
                                rtol=1e-4, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_deform_gather_bf16_kernel_matches_plain(cuda, case):
+    """The bf16-table route at every width it loads (hd 8 and 32: 16 bytes,
+    hd 12: 8 bytes, hd 6: one element) against the plain version."""
+    B, levels, nh, hd, P, Q, loc_range, nan_share = GATHER_CASES[case]
+    value, loc, wgt = (torch.as_tensor(a, device=cuda) for a in
+                       _gather_case(B, levels, nh, hd, P, Q, loc_range, seed=1,
+                                    nan_share=nan_share))
+    value = value.to(torch.bfloat16)
+    before = tdg.deform_gather.launches_bf16
+    out = tdg.deform_gather(value, levels, loc, wgt)
+    torch.cuda.synchronize()
+    assert tdg.deform_gather.launches_bf16 == before + 1
+    torch.testing.assert_close(out, tdg.deform_gather_plain(value, levels, loc, wgt),
+                               rtol=1e-5, atol=1e-6, equal_nan=True)
 
 
 def test_bert_matches_jax():
@@ -240,6 +290,52 @@ def test_forward_takes_a_gather_callable_in_every_layer(oracle):
     assert {c[2][1] for c in calls[:cfg.encoder_layers]} == {S}
     assert {c[2][1] for c in calls[cfg.encoder_layers:]} == {cfg.num_queries}
     assert all(sum(h * w for h, w in c[1]) == S for c in calls)
+
+
+def _top10_agreement(l_a, b_a, l_b, b_b):
+    """tests/test_groundingdino.py:408-440's detection-level rule on one
+    view: (the largest gap of the sorted best-token scores, the smallest
+    best IoU of a top-10 query of ``a`` against the top 10 of ``b``)."""
+    sig = lambda x: 1.0 / (1.0 + np.exp(-x))  # noqa: E731
+    s_a, s_b = sig(l_a).max(1), sig(l_b).max(1)
+
+    def cxcywh_iou(a, b):
+        lt = np.maximum(a[:, None, :2] - a[:, None, 2:] / 2, b[None, :, :2] - b[None, :, 2:] / 2)
+        rb = np.minimum(a[:, None, :2] + a[:, None, 2:] / 2, b[None, :, :2] + b[None, :, 2:] / 2)
+        inter = np.clip(rb - lt, 0, None).prod(-1)
+        return inter / (a[:, 2:].prod(-1)[:, None] + b[:, 2:].prod(-1)[None] - inter + 1e-9)
+
+    top_a, top_b = np.argsort(-s_a)[:10], np.argsort(-s_b)[:10]
+    iou = cxcywh_iou(b_a[top_a], b_b[top_b])
+    return float(np.abs(np.sort(s_a) - np.sort(s_b)).max()), float(iou.max(axis=1).min())
+
+
+def test_bf16_trunk_matches_jax_bf16(oracle):
+    """The gated bf16 trunk (Swin, input projections, encoder layers in
+    bf16; BERT, selection, decoder and heads f32) against the JAX package's
+    with its Pallas gather interpreted, which sums the bf16 tables in f32
+    as the port's gather does (its XLA gather sums in bf16). Held to the
+    detection-level rule of tests/test_groundingdino.py:408-440, against
+    JAX's bf16 and against the port's own f32; the weights the detector
+    rounds are a copy, the f32 model is left as it was."""
+    _, jparams, port, cfg = oracle
+    px = np.random.RandomState(0).randn(1, 64, 64, 3).astype(np.float32)
+    ref_l, ref_b = (np.asarray(a) for a in jgd.groundingdino_forward(
+        jparams, cfg, jnp.asarray(px), IDS, "bfloat16", gather_impl="pallas_interpret"))
+    det = tdet.GroundingDinoDetector(port, toy_tokenizer, device="cpu",
+                                     compute_dtype="bfloat16")
+    assert det.model is not port and det.model.compute_dtype == torch.bfloat16
+    assert port.compute_dtype == torch.float32
+    assert det.model.model.decoder.layers[0].fc1.weight is port.model.decoder.layers[0].fc1.weight
+    with torch.no_grad():
+        l16, b16 = (a.numpy() for a in det.model(torch.as_tensor(px), IDS))
+        l32, b32 = (a.numpy() for a in port(torch.as_tensor(px), IDS))
+    assert l16.dtype == b16.dtype == np.float32
+    np.testing.assert_array_equal(np.isfinite(l16), np.isfinite(ref_l))
+    for label, (la, ba) in (("jax_bf16", (ref_l, ref_b)), ("port_f32", (l32, b32))):
+        score_gap, min_iou = _top10_agreement(la[0], ba[0], l16[0], b16[0])
+        assert score_gap < 0.05, (label, score_gap)
+        assert min_iou > 0.9, (label, min_iou)
 
 
 def test_load_jax_params_equals_native_load(oracle):

@@ -113,6 +113,43 @@ def test_predict_boxes_views_matches_per_view_loop_and_jax(oracle):
             np.testing.assert_allclose(li.numpy(), i.numpy(), rtol=1e-4, atol=1e-5)
 
 
+def test_bf16_encoder_matches_jax_bf16(oracle):
+    """``SamPredictor(compute_dtype='bfloat16')`` (ViT trunk in bf16 with f32
+    LayerNorm statistics and softmax, f32 neck) against the JAX package's
+    bf16 encoder, and against the port's own f32 encoder, under
+    tests/test_sam.py:212-235's budgets: embedding cosine above 0.995, the
+    0-thresholded box masks equal on more than 98% of pixels and IoU
+    predictions within 0.05. The predictor rounds a copy of the trunk; the
+    decoder's weights are the f32 model's own."""
+    _, jparams, port, cfg = oracle
+    px = np.random.RandomState(1).randn(1, 64, 64, 3).astype(np.float32)
+    pred = TPredictor(port, device="cpu", compute_dtype="bfloat16")
+    assert pred.model.vision_encoder.layers[0].attn.qkv.weight.dtype == torch.bfloat16
+    assert pred.model.vision_encoder.neck.conv1.weight is port.vision_encoder.neck.conv1.weight
+    assert port.vision_encoder.layers[0].attn.qkv.weight.dtype == torch.float32
+    with torch.no_grad():
+        e16 = pred.model.encode(torch.as_tensor(px))
+        e32 = port.encode(torch.as_tensor(px))
+    assert e16.dtype == torch.float32
+    j16 = jsam.vision_encoder(jparams["vision"], jnp.asarray(px), cfg, "bfloat16")
+    boxes = jnp.asarray(BOXES[:1])
+    jm, ji = (np.asarray(a) for a in jsam.sam_decode_boxes(jparams, j16[0], boxes, cfg, True))
+
+    def decode(emb):
+        with torch.no_grad():
+            m, i = pred.model.decode_boxes(emb, torch.as_tensor(BOXES[:1]), True)
+        return m.numpy(), i.numpy()
+
+    m16, i16 = decode(e16)
+    for label, emb, (m, i) in (("jax_bf16", np.asarray(j16), (jm, ji)),
+                               ("port_f32", e32.numpy(), decode(e32))):
+        a, b = e16.numpy().reshape(-1, e16.shape[-1]), emb.reshape(-1, emb.shape[-1])
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12)
+        assert cos.min() > 0.995, (label, cos.min())
+        assert ((m16 > 0) == (m > 0)).mean() > 0.98, label
+        assert np.abs(i16 - i).max() < 0.05, label
+
+
 def test_init_params_has_the_structure_of_random_params_direct(oracle):
     """``random_params_direct`` carried into the port fills every parameter
     and buffer, and every leaf is of the kind init_params draws (zeros,

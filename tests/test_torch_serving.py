@@ -212,6 +212,48 @@ def test_fused_frame_step_matches_the_staged_stages(pipeline):
     assert tr.core.mem.w_size == tr_ref.core.mem.w_size == 2 * tr.core.mem.hw
 
 
+def test_fused_frame_step_bf16_matches_the_staged_stages(pipeline):
+    """Both models in bf16 (a bf16 DINOv2 backbone and
+    ``XMemConfig(compute_dtype='bfloat16')``): FusedFrameStep runs their
+    dtypes (JAX ``serving.py:459-460, 512-513``) and equals the staged bf16
+    stages at the f32 case's tolerance, over a normal and a memory frame;
+    the descriptors and the tracker's probabilities come back f32."""
+    p = pipeline
+    bb = td2.Dinov2Backbone(p["bb"].model, compute_dtype="bfloat16", resize_mode="device",
+                            device="cpu")
+    cfg = XMemConfig(**p["xcfg"], compute_dtype="bfloat16")
+
+    def seeded():
+        tr = VideoMaskTracker(p["model"], cfg, 2, 2, (40, 60), size=-1, device="cpu")
+        tr.process(p["frames"][0], p["mask0"])
+        return tr
+
+    src, kp = _t(p["src"]), _t(p["kp"])
+    lo, hi = _t(p["lo"]), _t(p["hi"])
+    tr_ref = seeded()
+    assert tr_ref.core.model.decoder.pred.weight.dtype == torch.bfloat16
+    ref = []
+    for t in (1, 2):
+        tr_ref.process(p["frames"][t])
+        mask = tr_ref.last_prob[:, 1:].permute(0, 2, 3, 1)
+        feats = bb(p["frames"][t])
+        assert feats.dtype == mask.dtype == torch.float32
+        st = FieldState(depth=_t(p["depth"]), pose=_t(p["pose"]), K=_t(p["K"]),
+                        dino_feats=feats, mask=mask)
+        ref.append({"mask": mask, **rigid_tracking_steps(st, src, kp, lo, hi,
+                                                         TrackingConfig(iters=5))})
+    tr = seeded()
+    fused = FusedFrameStep(bb, tr, p["depth"], p["pose"], p["K"], p["lo"], p["hi"],
+                           TrackingConfig(iters=5))
+    for i, t in enumerate((1, 2)):
+        out = fused.step(p["frames"][t], src, kp)
+        for k in ("mask", "match_pts", "t", "log_r", "loss_history"):
+            assert out[k].dtype == torch.float32
+            np.testing.assert_allclose(out[k].numpy(), ref[i][k].numpy(), rtol=0, atol=1e-6,
+                                       err_msg=f"frame {t} {k}")
+    assert (tr.core.curr_ti, tr.core.last_mem_ti) == (tr_ref.core.curr_ti, tr_ref.core.last_mem_ti)
+
+
 def test_fused_frame_step_matches_jax(pipeline):
     """Against JAX's FusedFrameStep at tests/test_serving.py:278-289's
     tolerances (its executable may reassociate sums across the stages)."""

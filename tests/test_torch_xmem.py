@@ -462,13 +462,66 @@ def test_core_mid_video_entry_matches_jax(full):
             assert float(ours[0, 3].max()) < 1e-3  # the inactive slot is silent
 
 
+def test_core_bf16_matches_jax_bf16_and_f32():
+    """``XMemConfig(compute_dtype='bfloat16')`` (the CNNs in bf16, the memory
+    f32) on tests/test_xmem.py:452-476's config, 4 frames at 48x48, one
+    view, against the JAX bf16 core and the port's f32 core. The seed frame
+    takes the given mask: equal to f32 at 1e-6. After it, random weights on
+    noise leave many pixels near a tie, which any rounding flips (the head
+    is scaled by 100 to decide about half of them): the labels must agree
+    on at least 99% of the pixels whose reference top-two margin exceeds
+    0.1 (45-48% of the pixels, asserted above 30%), and the
+    probabilities' 99th-percentile drift stays under JAX's 0.1."""
+    kw = dict(max_mid_term_frames=4, min_mid_term_frames=2, num_prototypes=8,
+              max_long_term_elements=64, top_k=5, mem_every=2)
+    model = _default_init(N.XMem(XMemConfig(), device="cpu"), 0)
+    with torch.no_grad():
+        model.decoder.pred.weight.mul_(100.0)
+        model.decoder.pred.bias.mul_(100.0)
+    jp = JN.convert_torch_state_dict({k: v.numpy() for k, v in model.state_dict().items()},
+                                     JXMemConfig())
+    V, O, H, W = 1, 2, 48, 48
+    rs = np.random.RandomState(3)
+    video = rs.rand(4, V, H, W, 3).astype(np.float32)
+    mask = (rs.rand(V, O, H, W) > 0.5).astype(np.float32)
+    core_j = JC.XMemCore(jp, JXMemConfig(**kw, compute_dtype="bfloat16"), num_views=V,
+                         num_objects=O, image_hw=(H, W))
+    c16 = C.XMemCore(model, XMemConfig(**kw, compute_dtype="bfloat16"), V, O, (H, W),
+                     device="cpu")
+    c32 = C.XMemCore(model, XMemConfig(**kw), V, O, (H, W), device="cpu")
+    assert c16.model.key_encoder.conv1.weight.dtype == torch.bfloat16
+    assert model.key_encoder.conv1.weight.dtype == torch.float32 and c32.model is model
+    for t in range(4):
+        m = mask if t == 0 else None
+        ref = np.asarray(core_j.step(jnp.asarray(video[t]), None if m is None else jnp.asarray(m)))
+        ours, f32 = c16.step(video[t], m), c32.step(video[t], m).numpy()
+        assert ours.dtype == torch.float32 and c16.mem.hidden.dtype == torch.float32
+        ours = ours.numpy()
+        if t == 0:
+            np.testing.assert_allclose(ours, f32, rtol=0, atol=1e-6)
+            np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
+            continue
+        for label, want in (("jax_bf16", ref), ("port_f32", f32)):
+            top2 = np.sort(want, axis=1)[:, -2:]
+            sure = top2[:, 1] - top2[:, 0] > 0.1
+            same = ours.argmax(1) == want.argmax(1)
+            assert sure.mean() > 0.3, (label, t, sure.mean())
+            assert same[sure].mean() >= 0.99, (label, t, same[sure].mean())
+            assert np.quantile(np.abs(ours - want), 0.99) < 0.1, (label, t)
+
+
 def test_core_guards():
     with pytest.raises(ValueError, match="multiples of 16"):
         C.XMemCore(N.XMem(XMemConfig(), device="cpu"), XMemConfig(), 1, 1, (40, 64),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
+    # the bf16 compute dtype is taken; a dtype of neither kind is refused
+    core = C.XMemCore(N.XMem(XMemConfig(), device="cpu"),
+                      XMemConfig(compute_dtype="bfloat16"), 1, 1, (48, 64), device="cpu")
+    assert core.model.decoder.pred.weight.dtype == torch.bfloat16
+    assert core.mem.hidden.dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype"):
         C.XMemCore(N.XMem(XMemConfig(), device="cpu"),
-                   XMemConfig(compute_dtype="bfloat16"), 1, 1, (48, 64), device="cpu")
+                   XMemConfig(compute_dtype="float16"), 1, 1, (48, 64), device="cpu")
     with pytest.raises(ValueError, match="max_mid_term_frames >= 2"):
         M.init_memory(XMemConfig(enable_long_term=False, max_mid_term_frames=1), 1, 1, (2, 2),
                       device="cpu")
