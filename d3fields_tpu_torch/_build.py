@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on first
-CUDA use into ``build/torch_kernels/lib<name>-<hash>.so`` beside the
-package, where ``<hash>`` covers the source and the flags, so an edited
-source rebuilds and an unchanged one does not. Nothing is compiled or
+CUDA use into ``lib<name>-<hash>.so``, where ``<hash>`` covers the source
+and the flags, so an edited source rebuilds and an unchanged one does not.
+The libraries go to ``build/torch_kernels/`` of a writable checkout, else
+to a per-user cache (``native_build.lib_dir``). Nothing is compiled or
 loaded at import time: a machine without nvcc imports the package and runs
 the kernels' plain versions on CPU tensors.
 """
@@ -18,10 +19,9 @@ import subprocess
 import time
 from typing import Dict, Iterable
 
+from d3fields_tpu_torch.native_build import lib_dir
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "torch_kernels"
-)
 SOURCES = ("fused_interp", "deform_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,13 +47,13 @@ def _nvcc() -> str:
 def lib_path(name: str) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    return os.path.join(lib_dir("torch_kernels"), f"lib{name}-{digest[:16]}.so")
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every named source whose library is missing, one nvcc per
     source, all started together. Returns the seconds each build took."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(lib_dir("torch_kernels"), exist_ok=True)
     running = {}
     for name in names:
         lib = lib_path(name)

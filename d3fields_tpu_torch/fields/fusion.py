@@ -134,6 +134,7 @@ def batch_eval(
     *,
     tile: int = 32768,
     fused: bool = False,
+    matmul_dtype: str = "float32",
 ) -> Dict[str, Tensor]:
     """Evaluate the field over any number of points, ``tile`` at a time.
 
@@ -141,9 +142,13 @@ def batch_eval(
     ``fusion.py:526-545``). Outputs are allocated once at full size and each
     tile is written into its slice; the ragged last tile is just shorter.
     ``fused=True`` queries through :func:`kernels.eval_field_fused` (the CUDA
-    kernel on the card), ``fused=False`` through :func:`eval_field`. Runs
-    without autograd: differentiate :func:`eval_field` instead.
+    kernel on the card) at ``matmul_dtype`` ('float32', or 'bfloat16' for
+    the kernel's bf16 route), ``fused=False`` through :func:`eval_field`
+    (f32 only). Runs without autograd: differentiate :func:`eval_field`
+    instead.
     """
+    if not fused and matmul_dtype != "float32":
+        raise ValueError("matmul_dtype applies to the fused query only (fused=True)")
     pts = torch.as_tensor(pts).to(device=state.device, dtype=state.depth.dtype)
     n = pts.shape[0]
     names = tuple(return_names)
@@ -153,7 +158,14 @@ def batch_eval(
            "valid_mask": torch.empty(n, dtype=torch.bool, device=dev)}
     for name in names:
         out[name] = torch.empty((n, maps[name].shape[-1]), dtype=dt, device=dev)
-    query = kernels.eval_field_fused if fused else eval_field
+    if fused:
+        # the bf16 route's tables rounded once, not at every tile's launch
+        state = kernels.round_patch_maps(state, names, matmul_dtype)
+
+        def query(st, p, nm):
+            return kernels.eval_field_fused(st, p, nm, matmul_dtype)
+    else:
+        query = eval_field
     with torch.no_grad():
         for s in range(0, n, tile):
             for k, v in query(state, pts[s:s + tile], names).items():
@@ -517,8 +529,6 @@ class Fusion:
         import os
         import pickle
 
-        from d3fields_tpu_torch.models.xmem.memory import memory_to_host
-
         st = self.state
         blob = {
             "state": None if st is None else {
@@ -534,7 +544,7 @@ class Fusion:
         if self.video_tracker is not None:
             core = self.video_tracker.core
             blob["tracker"] = {
-                "mem": memory_to_host(core.mem),
+                "mem": core.memory_to_host(),
                 "curr_ti": core.curr_ti,
                 "last_mem_ti": core.last_mem_ti,
                 "last_deep_update_ti": getattr(core, "last_deep_update_ti", None),
@@ -555,8 +565,6 @@ class Fusion:
         unpickling runs code)."""
         import pickle
         import warnings
-
-        from d3fields_tpu_torch.models.xmem.memory import memory_from_host
 
         with open(path, "rb") as f:
             blob = pickle.load(f)
@@ -587,7 +595,7 @@ class Fusion:
             warnings.warn(
                 f"load_state: the checkpoint's tracker had multi_group={spec['multi_group']}, "
                 f"the attached one has {core.multi_group}", stacklevel=2)
-        core.mem = memory_from_host(t["mem"], core.device)
+        core.memory_from_host(t["mem"])
         core.curr_ti = t["curr_ti"]
         core.last_mem_ti = t["last_mem_ti"]
         if t["last_deep_update_ti"] is not None:

@@ -20,6 +20,16 @@ def imagenet_stats(device: torch.device):
             torch.as_tensor(IMAGENET_STD).to(device))
 
 
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A per-call host array on ``device`` without waiting for the device's
+    queued work: a CUDA copy goes from pinned memory, asynchronously (a
+    plain copy from pageable memory waits for the stream to drain)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # The constructors below skip PyTorch's default initialisation: every weight is
 # set by a model's init_params or by a checkpoint.
 

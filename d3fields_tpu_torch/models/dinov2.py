@@ -41,6 +41,7 @@ from d3fields_tpu_torch.models.common import cast_copy, imagenet_stats, linear, 
 from d3fields_tpu_torch.models.resize import (
     bilinear_resize, cubic_resize_np, pil_bilinear_resize_u8,
 )
+from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.convert import np_view
 from d3fields_tpu_torch.utils.device import resolve_device
 
@@ -250,10 +251,31 @@ class Dinov2Backbone:
         self.cfg = model.cfg
         self.pos_interpolate = pos_interpolate
         self.resize_mode = resize_mode
-        self._pos_cache: Dict[Tuple[int, int], Tensor] = {}
+        self._views = ViewShards.on(self.device, self.model)
+        self.device = self._views.first
+        # each positional table used, on every device of the shards
+        self._pos_cache: Dict[Tuple[int, int], Dict[torch.device, Tensor]] = {}
+
+    def shard_views(self, mesh) -> "Dinov2Backbone":
+        """Split the view axis of each call over ``mesh`` (JAX
+        ``dinov2.py:217-232``): the transformer is replicated on each device
+        of the mesh, each device runs its views with no collective, and the
+        tokens come back in view order on the mesh's first device, which
+        becomes this backbone's device. The mesh size must divide the view
+        count of a call. Each device keeps its own copy of every positional
+        table it has used."""
+        self._views = ViewShards(mesh, self.model)
+        self.device = mesh.first
+        self.model = self._views.replicas[self.device]
+        self._pos_cache = {}
+        return self
 
     def interpolated_pos_embed(self, gh: int, gw: int) -> Tensor:
         """(1 + gh*gw, D) positional table for a (gh, gw) patch grid."""
+        return self._pos_tables(gh, gw)[self.device]
+
+    def _pos_tables(self, gh: int, gw: int) -> Dict[torch.device, Tensor]:
+        """The table of :meth:`interpolated_pos_embed` on each device."""
         key = (gh, gw)
         if key not in self._pos_cache:
             pe = self.model.pos_embed.detach()[0].cpu().numpy()
@@ -270,23 +292,25 @@ class Dinov2Backbone:
                     scale_hw = ((gh + 0.1) / G, (gw + 0.1) / G)
                 patch_pe = cubic_resize_np(patch_pe, (gh, gw), scale_hw=scale_hw)
                 out = np.concatenate([cls_pe, patch_pe.reshape(gh * gw, -1)], axis=0)
-            self._pos_cache[key] = torch.as_tensor(out).to(self.device)
+            table = torch.as_tensor(out)
+            self._pos_cache[key] = {d: table.to(d) for d in self._views.replicas}
         return self._pos_cache[key]
 
     def __call__(self, images, patch_hw: Optional[Tuple[int, int]] = None) -> Tensor:
         K, H, W, _ = images.shape
-        P = self.cfg.patch_size
         if patch_hw is None:
             patch_hw = (H // 10, W // 10)
         ph, pw = patch_hw
-        pos = self.interpolated_pos_embed(ph, pw)
-        if isinstance(images, np.ndarray):
-            images = np.ascontiguousarray(images)
-        images = torch.as_tensor(images).to(self.device)
+        pos = self._pos_tables(ph, pw)
+        return self._views.map(
+            lambda model, dev, imgs: self._extract(model, imgs, pos[dev], ph, pw), images)
+
+    def _extract(self, model: Dinov2, images: Tensor, pos: Tensor, ph: int, pw: int) -> Tensor:
+        P = self.cfg.patch_size
         if self.resize_mode == "pil" and images.dtype == torch.uint8:
             images = pil_bilinear_resize_u8(images, (ph * P, pw * P))
         with torch.no_grad():
-            return _extract_patch_features(self.model, images, pos, (ph * P, pw * P))
+            return _extract_patch_features(model, images, pos, (ph * P, pw * P))
 
 
 def _extract_patch_features(model: Dinov2, images_u8: Tensor, pos_embed: Tensor,

@@ -24,6 +24,7 @@ import torch
 from d3fields_tpu_torch.models.common import imagenet_stats, torch_dtype
 from d3fields_tpu_torch.models.groundingdino.model import GroundingDino, gated_copy
 from d3fields_tpu_torch.models.resize import bilinear_resize
+from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -71,6 +72,22 @@ class GroundingDinoDetector:
         self.tokenize = tokenize
         self.short_side = short_side
         self.max_side = max_side
+        self._views = ViewShards.on(self.device, self.model)
+        self.device = self._views.first
+
+    def shard_views(self, mesh) -> "GroundingDinoDetector":
+        """Split the view axis of each batched forward over ``mesh`` (JAX
+        ``detector.py:130-145``): the model is replicated on each device of
+        the mesh, and each device runs the forward of its own views, its
+        encoder and decoder gathers launching ``deform_gather`` (either
+        route) on those views alone: the port's counterpart of the JAX
+        ``shard_map`` forward, with no collective. The outputs come back in
+        view order on the mesh's first device, which becomes this
+        detector's device. The mesh size must divide the view count."""
+        self._views = ViewShards(mesh, self.model)
+        self.device = mesh.first
+        self.model = self._views.replicas[self.device]
+        return self
 
     def resized_hw(self, H: int, W: int) -> Tuple[int, int]:
         scale = self.short_side / min(H, W)
@@ -78,10 +95,12 @@ class GroundingDinoDetector:
             scale = self.max_side / max(H, W)
         return round(H * scale), round(W * scale)
 
-    def prep(self, images: np.ndarray) -> Tensor:
-        """uint8 (V, H, W, 3) -> normalised (V, rh, rw, 3) on the device."""
-        imgs = torch.as_tensor(np.asarray(images), device=self.device).float() / 255.0
-        imgs = bilinear_resize(imgs, self.resized_hw(*imgs.shape[1:3]))
+    def prep(self, images) -> Tensor:
+        """uint8 (V, H, W, 3) -> normalised (V, rh, rw, 3), on the device of
+        ``images`` if it is a tensor, else on this detector's."""
+        imgs = images if torch.is_tensor(images) else torch.as_tensor(np.asarray(images),
+                                                                      device=self.device)
+        imgs = bilinear_resize(imgs.float() / 255.0, self.resized_hw(*imgs.shape[1:3]))
         mean, std = imagenet_stats(imgs.device)
         return (imgs - mean) / std
 
@@ -100,9 +119,8 @@ class GroundingDinoDetector:
         """All V views in ONE forward. images (V, H, W, 3) RGB uint8."""
         input_ids, spans = tokenize_classes(classes, self.tokenize)
         V, H, W = images.shape[:3]
-        ids = np.repeat(input_ids, V, axis=0)
+        logits, boxes = self.forward_views(images, input_ids)
         with torch.no_grad():
-            logits, boxes = self.model(self.prep(images), ids)
             span_mask = torch.as_tensor(_span_mask(spans, self.cfg.max_text_len),
                                         device=self.device)
             reduced = _reduce_detection_outputs(logits, span_mask, text_threshold)
@@ -110,6 +128,17 @@ class GroundingDinoDetector:
         boxes = boxes.cpu().numpy()
         return [_postprocess_view_reduced(scores[v], span_thr[v], span_fb[v], boxes[v],
                                           box_threshold, (H, W)) for v in range(V)]
+
+    def forward_views(self, images, input_ids: np.ndarray) -> Tuple[Tensor, Tensor]:
+        """uint8 images (V, H, W, 3) and one caption's ids (1, L) -> the
+        forward's (logits (V, Q, max_text_len), boxes (V, Q, 4)) on this
+        detector's device; one forward per device under
+        :meth:`shard_views`."""
+        def forward(model, _, imgs):
+            return model(self.prep(imgs), np.repeat(input_ids, imgs.shape[0], axis=0))
+
+        with torch.no_grad():
+            return self._views.map(forward, images)
 
 
 def _span_mask(spans, L: int) -> np.ndarray:

@@ -32,6 +32,7 @@ selection, and the cross-modality decoder with iterative box refinement.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -40,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from d3fields_tpu_torch.models.common import cast_copy, embedding, linear, named
+from d3fields_tpu_torch.models.common import (
+    cast_copy, embedding, host_to_device, linear, named)
 from d3fields_tpu_torch.models.groundingdino import bert as B
 from d3fields_tpu_torch.models.groundingdino import swin as SW
 from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
@@ -194,12 +196,48 @@ def _encoder_reference_points(spatial_shapes) -> np.ndarray:
     return np.concatenate(refs, 0)
 
 
+@functools.lru_cache(maxsize=16)
+def _sine_dim_t(num_pos_feats: int, temperature: float, device: torch.device) -> Tensor:
+    """:func:`get_sine_pos_embed`'s frequencies on ``device``, copied there
+    once: a copy from the host inside a forward waits for the device."""
+    return torch.as_tensor(
+        temperature ** (2.0 * (np.arange(num_pos_feats) // 2) / num_pos_feats),
+        dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_constants(spatial_shapes: Tuple[Tuple[int, int], ...], d_model: int,
+                     temperature: float, device: torch.device) -> Dict[str, object]:
+    """The forward's host-built tables for one level layout, on ``device``,
+    copied there once per (layout, device): each level's sine position
+    table, the encoder's reference points, and the query selection's
+    proposals and their validity. A copy from the host inside a forward
+    would wait for the device's queued work (a shard's encoder, or the
+    shard before it)."""
+    props, valid = _grid_proposals(spatial_shapes)
+
+    def put(a):
+        return torch.as_tensor(a, device=device)
+
+    return {"pos": tuple(put(sine_position_embedding(h, w, d_model, temperature))
+                         for h, w in spatial_shapes),
+            "ref": put(_encoder_reference_points(spatial_shapes)),
+            "proposals": put(props), "valid": put(valid)}
+
+
+@functools.lru_cache(maxsize=16)
+def _level_normalizer(spatial_shapes: Tuple[Tuple[int, int], ...],
+                      device: torch.device) -> Tensor:
+    """The deformable attention's (L, 2) (w, h) rows on ``device``, copied
+    there once per layout (as :func:`_level_constants`)."""
+    return torch.as_tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                           device=device)
+
+
 def get_sine_pos_embed(pos: Tensor, num_pos_feats: int, temperature: float = 10000.0,
                        exchange_xy: bool = True) -> Tensor:
     """(..., n) positions -> (..., n*num_pos_feats) sine features."""
-    dim_t = torch.as_tensor(
-        temperature ** (2.0 * (np.arange(num_pos_feats) // 2) / num_pos_feats),
-        dtype=torch.float32, device=pos.device)
+    dim_t = _sine_dim_t(num_pos_feats, temperature, pos.device)
     sx = pos[..., None] * (2.0 * np.pi) / dim_t  # (..., n, F)
     emb = torch.stack([sx[..., 0::2].sin(), sx[..., 1::2].cos()], -1).flatten(-2)
     parts = [emb[..., i, :] for i in range(pos.shape[-1])]
@@ -355,8 +393,7 @@ class _DeformableAttention(nn.Module):
         weights = torch.softmax(weights, -1).reshape(Bn, Q, nh, L, P)
         reference_points = reference_points.float()
         if reference_points.shape[-1] == 2:
-            normalizer = torch.as_tensor([[w, h] for h, w in spatial_shapes],
-                                         dtype=torch.float32, device=hidden.device)
+            normalizer = _level_normalizer(tuple(map(tuple, spatial_shapes)), hidden.device)
             loc = (reference_points[:, :, None, :, None, :]
                    + offsets / normalizer[None, None, None, :, None, :])
         else:
@@ -523,9 +560,8 @@ class GroundingDino(nn.Module):
         cfg, m, dev = self.cfg, self.model, pixels.device
         ids_np = np.asarray(input_ids)
         self_mask_np, pos_np = generate_text_masks(ids_np)
-        ids = torch.as_tensor(ids_np, device=dev)
-        self_mask = torch.as_tensor(self_mask_np, device=dev)
-        pos_ids = torch.as_tensor(pos_np, device=dev)
+        ids, self_mask, pos_ids = (host_to_device(a, dev)
+                                   for a in (ids_np, self_mask_np, pos_np))
         token_mask = torch.ones_like(ids, dtype=torch.bool)
         text = m.text_backbone(ids, self_mask, torch.zeros_like(ids), pos_ids)
         text = m.text_projection(text)
@@ -533,10 +569,8 @@ class GroundingDino(nn.Module):
         maps = self._vision_maps(pixels)
         spatial_shapes = tuple((int(x.shape[1]), int(x.shape[2])) for x in maps)
         vision = torch.cat([x.reshape(x.shape[0], -1, cfg.d_model) for x in maps], 1)
-        pos = torch.cat([
-            torch.as_tensor(sine_position_embedding(h, w, cfg.d_model, cfg.pe_temperature),
-                            device=dev) + m.level_embed[li]
-            for li, (h, w) in enumerate(spatial_shapes)], 0)[None]
+        consts = _level_constants(spatial_shapes, cfg.d_model, cfg.pe_temperature, dev)
+        pos = torch.cat([p + m.level_embed[li] for li, p in enumerate(consts["pos"])], 0)[None]
         return self._transformer(vision, pos, spatial_shapes, text, self_mask, ~token_mask,
                                  pos_ids, token_mask, gather_fn)
 
@@ -545,8 +579,8 @@ class GroundingDino(nn.Module):
         """Encoder, query selection, decoder and heads."""
         cfg, m, dev = self.cfg, self.model, vision.device
         Bn, L = vision.shape[0], len(spatial_shapes)
-        ref = torch.as_tensor(_encoder_reference_points(spatial_shapes), device=dev)
-        ref = ref[None, :, None, :].expand(Bn, -1, L, 2)
+        consts = _level_constants(tuple(spatial_shapes), cfg.d_model, cfg.pe_temperature, dev)
+        ref = consts["ref"][None, :, None, :].expand(Bn, -1, L, 2)
 
         # the encoder runs in the trunk's dtype; everything after it in f32
         dt = self.compute_dtype
@@ -560,9 +594,7 @@ class GroundingDino(nn.Module):
         vision, text = vision.float(), text.float()
 
         # language-guided query selection (two-stage)
-        props_np, valid_np = _grid_proposals(spatial_shapes)
-        proposals = torch.as_tensor(props_np, device=dev)
-        valid = torch.as_tensor(valid_np, device=dev)
+        proposals, valid = consts["proposals"], consts["valid"]
         obj_query = torch.where(valid[None, :, None], vision, 0.0)
         obj_query = m.enc_output_norm(m.enc_output(obj_query))
         enc_logits = contrastive_logits(obj_query, text, text_token_mask, cfg.max_text_len)

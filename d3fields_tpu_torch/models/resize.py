@@ -105,18 +105,27 @@ def _pil_coeffs_1d(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]
     return xmins, weights
 
 
+@functools.lru_cache(maxsize=32)
+def _pil_taps(in_size: int, out_size: int, device: torch.device):
+    """One pass's (flat tap indices, (out_size, ksize) int64 weights) on
+    ``device``, copied there once per (sizes, device): a copy from the host
+    at every resize would wait for the device's queued work."""
+    xmins, weights = _pil_coeffs_1d(in_size, out_size)
+    taps = np.clip(xmins[:, None] + np.arange(weights.shape[1]), 0, in_size - 1).reshape(-1)
+    return torch.as_tensor(taps, device=device), torch.as_tensor(weights, device=device)
+
+
 def _pil_pass_u8(img: torch.Tensor, in_size: int, out_size: int, dim: int) -> torch.Tensor:
     """One 8bpc resample pass along ``dim`` (non-negative) with Pillow's
     rounding: start the accumulator at 1 << (PRECISION_BITS-1), shift down,
     clip to u8. In int64 on the image's device, so exact."""
-    xmins, weights = _pil_coeffs_1d(in_size, out_size)
+    taps, weights = _pil_taps(in_size, out_size, img.device)
     ksize = weights.shape[1]
-    taps = np.clip(xmins[:, None] + np.arange(ksize), 0, in_size - 1).reshape(-1)
-    g = img.index_select(dim, torch.as_tensor(taps, device=img.device)).to(torch.int64)
+    g = img.index_select(dim, taps).to(torch.int64)
     split = list(g.shape[:dim]) + [out_size, ksize] + list(g.shape[dim + 1:])
     wshape = [1] * len(split)
     wshape[dim], wshape[dim + 1] = out_size, ksize
-    w = torch.as_tensor(weights, device=img.device).reshape(wshape)
+    w = weights.reshape(wshape)
     acc = (g.reshape(split) * w).sum(dim + 1) + (1 << (_PIL_PRECISION_BITS - 1))
     return torch.clamp(acc >> _PIL_PRECISION_BITS, 0, 255).to(torch.uint8)
 

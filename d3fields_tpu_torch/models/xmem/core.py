@@ -36,6 +36,7 @@ from d3fields_tpu_torch.models.common import cast_copy, torch_dtype
 from d3fields_tpu_torch.models.xmem import blocks as B
 from d3fields_tpu_torch.models.xmem import memory as M
 from d3fields_tpu_torch.models.xmem.network import XMem
+from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -179,7 +180,12 @@ def reseed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob:
 
 class XMemCore:
     """Frame counters and the per-view memory of every camera (the
-    reference keeps a list of per-camera cores, ``fusion.py:282-302``)."""
+    reference keeps a list of per-camera cores, ``fusion.py:282-302``).
+
+    The views form one group per device of its :class:`ViewShards` (one
+    group until :meth:`shard_views`): ``mems`` holds each group's memory,
+    on its device, and :meth:`memory_to_host` / :meth:`memory_from_host`
+    carry the whole memory."""
 
     def __init__(self, model: XMem, cfg: XMemConfig, num_views: int, num_objects: int,
                  image_hw: Tuple[int, int], multi_group: bool = False, *, device=None):
@@ -202,23 +208,85 @@ class XMemCore:
         self.num_views = num_views
         self.num_objects = num_objects
         self.image_hw = image_hw
+        self._views = ViewShards.on(self.device, self.model)
+        self.device = self._views.first
         self.clear_memory()
+
+    def shard_views(self, mesh) -> "XMemCore":
+        """Split the views over ``mesh`` (JAX ``core.py:324-354``): the
+        networks are replicated on each device of the mesh, each device
+        keeps the memory of its group of ``num_views / size`` views and
+        steps them, and the probabilities come back in view order on the
+        mesh's first device, which becomes this core's device. XMem has no
+        cross-view term, so each group consolidates on its own, in step
+        with the others. Clears the memory."""
+        if self.num_views % mesh.size:
+            raise ValueError(f"num_views={self.num_views} not divisible by mesh axis "
+                             f"'dp' of size {mesh.size}")
+        self._views = ViewShards(mesh, self.model)
+        self.device = mesh.first
+        self.model = self._views.replicas[self.device]
+        self.clear_memory()
+        return self
+
+    @property
+    def mem(self) -> M.XMemMemory:
+        """The memory of all views, where they form one group."""
+        if len(self.mems) != 1:
+            raise RuntimeError(f"the views form {len(self.mems)} groups: read core.mems")
+        return self.mems[0]
 
     def clear_memory(self):
         """Reset the tracking state (reference ``clear_memory``,
         ``inference_core.py:22-27``)."""
         H, W = self.image_hw
-        self.mem = M.init_memory(self.cfg, self.num_views, self.num_objects, (H // 16, W // 16),
-                                 multi_group=self.multi_group, device=self.device)
+        self.mems = [M.init_memory(self.cfg, self.num_views // self._views.size,
+                                   self.num_objects, (H // 16, W // 16),
+                                   multi_group=self.multi_group, device=d)
+                     for d in self._views.devices]
         self.curr_ti = -1
         self.last_mem_ti = 0
         if not self.deep_update_sync:
             self.last_deep_update_ti = -self.cfg.deep_update_every
 
+    def memory_to_host(self) -> dict:
+        """The whole memory as :func:`memory.memory_to_host` gives it (the
+        groups joined along the view axis), for a checkpoint that
+        :meth:`memory_from_host` restores into a core of the same views,
+        sharded or not."""
+        parts = [M.memory_to_host(m) for m in self.mems]
+        out = {}
+        for k, v in parts[0].items():
+            if k in M.TENSOR_FIELDS:
+                out[k] = np.concatenate([p[k] for p in parts])
+            else:
+                if any(p[k] != v for p in parts):
+                    raise RuntimeError(f"the view groups' memories disagree on {k}")
+                out[k] = v
+        return out
+
+    def memory_from_host(self, d: dict) -> None:
+        """Restore what :meth:`memory_to_host` gave, split over this core's
+        view groups."""
+        n = self._views.size
+        split = {k: np.array_split(v, n) for k, v in d.items() if k in M.TENSOR_FIELDS}
+        self.mems = [M.memory_from_host({k: split[k][i] if k in split else v
+                                         for k, v in d.items()}, dev)
+                     for i, dev in enumerate(self._views.devices)]
+
     def _tensor(self, x) -> Tensor:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device, torch.float32)
+
+    def run_step(self, fn, per_view, *rest) -> Tensor:
+        """``fn(model, mem, *per_view, *rest)`` on each view group's device,
+        with its memory and its chunk of each ``per_view`` tensor; the
+        probabilities joined on the core's device."""
+        v = self._views
+        chunks = [v.split(x) for x in per_view]
+        return v.gather([fn(v.replicas[d], mem, *cs, *rest)
+                         for d, mem, *cs in zip(v.devices, self.mems, *chunks)])
 
     def step(self, images, mask_prob=None, provided=None) -> Tensor:
         """images (V, H, W, 3) normalised; mask_prob (V, O, H, W) on
@@ -241,11 +309,11 @@ class XMemCore:
                 if provided is None:
                     provided = mask_prob.amax(dim=(0, 2, 3)) > 0
                 provided = torch.as_tensor(provided).to(self.device, torch.bool)
-                prob = reseed_step_views(self.model, self.mem, images, mask_prob, provided,
-                                         None if self.deep_update_sync else deep_fires,
-                                         self.deep_update_sync)
+                prob = self.run_step(reseed_step_views, (images, mask_prob), provided,
+                                 None if self.deep_update_sync else deep_fires,
+                                 self.deep_update_sync)
             else:
-                prob = seed_step_views(self.model, self.mem, images, mask_prob)
+                prob = self.run_step(seed_step_views, (images, mask_prob))
             self.last_mem_ti = self.curr_ti
             if not self.deep_update_sync and deep_fires:
                 self.last_deep_update_ti = self.curr_ti
@@ -258,8 +326,8 @@ class XMemCore:
             # a scheduled deep update takes effect on a memory frame only
             is_deep_update = (self.curr_ti - self.last_deep_update_ti
                               >= self.cfg.deep_update_every)
-        prob = propagate_step_views(self.model, self.mem, images, is_mem_frame,
-                                    self.deep_update_sync, is_deep_update)
+        prob = self.run_step(propagate_step_views, (images,), is_mem_frame,
+                         self.deep_update_sync, is_deep_update)
         if is_mem_frame:
             self.last_mem_ti = self.curr_ti
             if not self.deep_update_sync and is_deep_update:

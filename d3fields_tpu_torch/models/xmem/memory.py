@@ -91,7 +91,7 @@ class XMemMemory:
         return self.lk.shape[-1]
 
 
-_TENSOR_FIELDS = ("wk", "ws", "we", "wv", "w_use", "w_life", "lk", "ls", "lv", "l_use",
+TENSOR_FIELDS = ("wk", "ws", "we", "wv", "w_use", "w_life", "lk", "ls", "lv", "l_use",
                   "l_life", "hidden", "w_entry", "active", "l_vis")
 
 
@@ -139,14 +139,14 @@ def init_memory(cfg: XMemConfig, num_views: int, num_objects: int, key_hw: Tuple
 
 def memory_to_host(mem: XMemMemory) -> Dict:
     """The memory as a dict of numpy arrays and host values (for pickling)."""
-    return {f.name: (getattr(mem, f.name).cpu().numpy() if f.name in _TENSOR_FIELDS
+    return {f.name: (getattr(mem, f.name).cpu().numpy() if f.name in TENSOR_FIELDS
                      else getattr(mem, f.name)) for f in dataclasses.fields(mem)}
 
 
 def memory_from_host(d: Dict, device) -> XMemMemory:
     """The inverse of :func:`memory_to_host`, with the tensors on ``device``."""
     dev = resolve_device(device)
-    return XMemMemory(**{k: (torch.as_tensor(v).to(dev) if k in _TENSOR_FIELDS else v)
+    return XMemMemory(**{k: (torch.as_tensor(v).to(dev) if k in TENSOR_FIELDS else v)
                          for k, v in d.items()})
 
 

@@ -7,7 +7,9 @@ the keypoint-selection hot loop (``fusion.py:1447,1505,1566``). Here:
 - :func:`fps`: the device version, a loop of O(N) distance updates on the
   points' device;
 - :func:`fps_np`: the host version with reference-identical semantics
-  (random or given start index, returns (samples, indices, max residual)).
+  (random or given start index, returns (samples, indices, max residual));
+- :func:`fps_rad_np`: the host version that samples until every point lies
+  within a radius of a sample.
 """
 
 from __future__ import annotations
@@ -70,3 +72,17 @@ def fps_np(
         fps_idx.append(nxt)
         dist = np.minimum(dist, np.linalg.norm(pcd - pcd[nxt], axis=1))
     return pcd[fps_idx], fps_idx, float(dist.max())
+
+
+def fps_rad_np(pcd: np.ndarray, radius: float) -> np.ndarray:
+    """Radius-terminated host FPS (``utils/my_utils.py:465-476``): samples
+    until no point lies farther than ``radius`` from a sample. The start
+    index is drawn from the global ``np.random`` state. Returns the samples
+    (S, C)."""
+    start = np.random.randint(pcd.shape[0])
+    out = [pcd[start]]
+    dist = np.linalg.norm(pcd - out[0], axis=1)
+    while dist.max() > radius:
+        out.append(pcd[dist.argmax()])
+        dist = np.minimum(dist, np.linalg.norm(pcd - out[-1], axis=1))
+    return np.stack(out, axis=0)

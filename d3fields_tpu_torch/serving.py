@@ -318,7 +318,7 @@ class FusedFrameStep:
         # Fusion.update
         imf = prep_frames(images_u8.flip(-1) if self.xmem_bgr_to_rgb else images_u8,
                           tracker.resized_hw, tracker.pad_spec)
-        prob = propagate_step_views(core.model, core.mem, imf, is_mem_frame, sync=True)
+        prob = core.run_step(propagate_step_views, (imf,), is_mem_frame, True)
         mask = upsample_probs(prob, tracker.pad_spec, (H, W))[:, 1:].permute(0, 2, 3, 1)
         st = FieldState(depth=depth, pose=self.pose, K=self.K, dino_feats=feats.float(),
                         mask=mask, mu=self.mu)

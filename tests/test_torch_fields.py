@@ -127,6 +127,113 @@ def test_fused_weighted_interp_plain_matches_pallas(rng, V, h, w, C):
     np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
+def _cos_deficit(a, b, keep):
+    a, b = a[keep], b[keep]
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12)
+    return float((1.0 - cos).max())
+
+
+@pytest.mark.parametrize("V, h, w, C", [
+    pytest.param(3, 6, 8, 130, id="3"),
+    pytest.param(1, 6, 8, 130, id="1"),
+    pytest.param(4, 60, 80, 12, id="large_grid"),
+])
+def test_fused_weighted_interp_bf16_plain_matches_pallas_bf16(rng, V, h, w, C):
+    """matmul_dtype='bfloat16' (the JAX kernel's default on a TPU,
+    kernels.py:121-165): the table and the tap weights rounded to bf16,
+    their products summed in f32. A product of two bf16 values is exact in
+    f32, so only the order of the f32 sums differs: rtol 1e-5 / atol 1e-6.
+    Rounding the table alone gives another function."""
+    N = 77
+    H, W = 48, 64
+    feats = rng.standard_normal((V, h * w, C)).astype(np.float32)
+    xy = rng.uniform(-5, 70, size=(V, N, 2)).astype(np.float32)
+    vw = rng.uniform(0, 1, size=(V, N)).astype(np.float32)
+    idx, tw = jax.vmap(lambda p: jgeom.bilinear_taps(p, (H, W), (h, w)))(jnp.asarray(xy))
+    tw = tw * jnp.asarray(vw)[..., None]
+    ref = np.asarray(jkernels.fused_weighted_interp(
+        jnp.asarray(feats), idx, tw, point_tile=32, interpret=True, matmul_dtype="bfloat16"))
+    f, i, w_ = torch.as_tensor(feats), torch.as_tensor(np.array(idx)), torch.as_tensor(np.array(tw))
+    before = (tkernels.fused_weighted_interp.launches, tkernels.fused_weighted_interp.launches_bf16)
+    out = tkernels.fused_weighted_interp(f, i, w_, "bfloat16")
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), ref, rtol=1e-5, atol=1e-6)
+    # a bf16 table in is the same function
+    np.testing.assert_array_equal(_np(tkernels.fused_weighted_interp(f.bfloat16(), i, w_,
+                                                                     "bfloat16")), _np(out))
+    assert (tkernels.fused_weighted_interp.launches,
+            tkernels.fused_weighted_interp.launches_bf16) == before  # the CPU runs no kernel
+    table_only = tkernels.fused_weighted_interp_plain(f.bfloat16().float(), i, w_)
+    assert float((table_only - out).abs().max()) > 0
+
+
+def test_fused_weighted_interp_bf16_within_the_cosine_budget(rng):
+    """tests/test_kernels.py:69-93: the bf16 route's descriptors stay within
+    1 - cos < 1e-3 of the f32 route's at the field query's widths."""
+    V, h, w, C = 4, 24, 32, 1024
+    H, W = 240, 320
+    N = 513
+    feats = torch.as_tensor(rng.standard_normal((V, h * w, C)).astype(np.float32))
+    xy = torch.as_tensor(rng.uniform(0, 300, size=(V, N, 2)).astype(np.float32))
+    vw = torch.as_tensor(rng.uniform(0, 1, size=(V, N)).astype(np.float32))
+    idx, tw = tgeom.bilinear_taps(xy, (H, W), (h, w))
+    tw = (tw * vw[..., None]).contiguous()
+    hi = _np(tkernels.fused_weighted_interp(feats, idx, tw))
+    lo = _np(tkernels.fused_weighted_interp(feats, idx, tw, "bfloat16"))
+    assert _cos_deficit(hi, lo, np.linalg.norm(hi, axis=-1) > 1e-3) < 1e-3
+
+
+def test_batch_eval_bf16_route_within_budget_of_jax(states, qpts):
+    """The slice as a whole: ``batch_eval(fused=True, matmul_dtype=
+    'bfloat16')`` against the JAX package's batch_eval (f32 off a TPU).
+    Only the descriptors pass through the bf16 route: dist, valid_mask and
+    the full-resolution mask at tests/test_fusion.py's tolerances, the
+    descriptors at 1 - cos < 1e-3."""
+    js, ts = states
+    names = ("dino_feats", "mask")
+    j = jfusion.batch_eval(js, qpts, names, tile=128)
+    t = tfusion.batch_eval(ts, qpts, names, tile=128, fused=True, matmul_dtype="bfloat16")
+    _assert_field_close(t, j, ("mask",))
+    got, want = _np(t["dino_feats"]), np.asarray(j["dino_feats"])
+    assert _cos_deficit(got, want, np.linalg.norm(want, axis=-1) > 1e-3) < 1e-3
+    assert np.abs(got - want).max() > 0  # rounded, not the f32 route
+
+
+def test_batch_eval_rounds_the_patch_maps_once(states, qpts):
+    """The bf16 route's table is rounded once per batch_eval call
+    (``round_patch_maps``), not at each tile's launch: the same outputs,
+    bit for bit, as each tile's query rounding the f32 table itself. Only
+    the patch-grid map is rounded; the full-resolution mask and every map
+    at f32 stay as they are."""
+    _, ts = states
+    names = ("dino_feats", "mask")
+    rounded = tkernels.round_patch_maps(ts, names, "bfloat16")
+    assert rounded.dino_feats.dtype == torch.bfloat16 and rounded.mask is ts.mask
+    assert tkernels.round_patch_maps(ts, names, "float32") is ts
+    assert tkernels.round_patch_maps(rounded, names, "bfloat16") is rounded
+    got = tfusion.batch_eval(ts, qpts, names, tile=128, fused=True, matmul_dtype="bfloat16")
+    pts = torch.as_tensor(qpts)
+    for s in range(0, len(qpts), 128):
+        want = tkernels.eval_field_fused(ts, pts[s:s + 128], names, "bfloat16")
+        for k, v in want.items():
+            torch.testing.assert_close(got[k][s:s + 128], v, rtol=0, atol=0, msg=k)
+
+
+def test_matmul_dtype_must_be_f32_or_bf16(states, qpts):
+    _, ts = states
+    feats, idx, w = torch.zeros(1, 4, 8), torch.zeros(1, 2, 4, dtype=torch.int32), \
+        torch.zeros(1, 2, 4)
+    for bad in ("float16", "fp32", None):
+        with pytest.raises(ValueError, match="matmul_dtype"):
+            tkernels.fused_weighted_interp(feats, idx, w, bad)
+        with pytest.raises(ValueError, match="matmul_dtype"):
+            tkernels.fused_weighted_interp_plain(feats, idx, w, bad)
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        tkernels.eval_field_fused(ts, torch.as_tensor(qpts[:8]), ("dino_feats",), "float16")
+    with pytest.raises(ValueError, match="fused"):
+        tfusion.batch_eval(ts, qpts[:8], ("dino_feats",), matmul_dtype="bfloat16")
+
+
 def test_fused_weighted_interp_out_of_range_taps_contribute_nothing():
     feats = torch.arange(12, dtype=torch.float32).reshape(1, 3, 4)
     idx = torch.tensor([[[0, 2, 3, -1]]], dtype=torch.int32)
@@ -150,6 +257,23 @@ def test_slice_channels_picks_the_widest_slice_that_fits(V, P, C, expected):
     assert tkernels.slice_channels(V, P, C) == expected
     if expected:
         assert V * P * expected * 4 <= tkernels.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("V, P, C, expected", [
+    (4, 24 * 32, 1024, 32),  # the field query: 32-channel (64-byte) rows, 192 KB
+    (4, 30 * 40, 1024, 16),  # 32-channel slices would take 300 KB
+    (4, 60 * 80, 1024, 0),  # no slice fits: the direct route
+    (3, 48, 132, 0),  # C % 8 != 0: a row is not whole 16-byte chunks
+    (3, 48, 136, 32),  # a ragged last slice of 8 channels
+    (2, 48, 16, 16),  # no slice is wider than C
+    (1, 48, 8, 0),  # no slice is as narrow as C
+    (1, 3632, 32, 32),  # 232,448 B: the most one block may use
+    (1, 3633, 32, 16),
+])
+def test_slice_channels_bf16_table(V, P, C, expected):
+    assert tkernels.slice_channels(V, P, C, torch.bfloat16) == expected
+    if expected:
+        assert V * P * expected * 2 <= tkernels.SMEM_PER_BLOCK
 
 
 def test_fused_weighted_interp_rejects_what_the_kernel_does_not_take():
@@ -283,4 +407,27 @@ def test_fused_weighted_interp_kernel_matches_plain(cuda, V, h, w, C, N):
     torch.cuda.synchronize()
     assert tkernels.fused_weighted_interp.launches == before + 1
     ref = tkernels.fused_weighted_interp_plain(feats, idx, tw)
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V, h, w, C, N", [
+    (3, 6, 8, 130, 77),  # C % 8 != 0: the direct route
+    (3, 6, 8, 136, 77),  # 32-channel slices, a ragged last one
+    (4, 24, 32, 1024, 4096),  # the field query's table: 32-channel slices
+    (4, 30, 40, 1024, 4096),  # 16-channel slices
+])
+def test_fused_weighted_interp_bf16_kernel_matches_plain(cuda, V, h, w, C, N):
+    rng = np.random.default_rng(1)
+    H, W = 48, 64
+    feats = torch.as_tensor(rng.standard_normal((V, h * w, C)).astype(np.float32), device=cuda)
+    xy = torch.as_tensor(rng.uniform(-5, 70, size=(V, N, 2)).astype(np.float32), device=cuda)
+    vw = torch.as_tensor(rng.uniform(0, 1, size=(V, N)).astype(np.float32), device=cuda)
+    idx, tw = tgeom.bilinear_taps(xy, (H, W), (h, w))
+    tw = (tw * vw[..., None]).contiguous()
+    before = tkernels.fused_weighted_interp.launches_bf16
+    out = tkernels.fused_weighted_interp(feats.bfloat16(), idx, tw, "bfloat16")
+    torch.cuda.synchronize()
+    assert tkernels.fused_weighted_interp.launches_bf16 == before + 1
+    ref = tkernels.fused_weighted_interp_plain(feats.bfloat16(), idx, tw, "bfloat16")
     np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-4, atol=1e-5)

@@ -233,6 +233,39 @@ def test_host_tables_match_jax():
         np.asarray(jgd.get_sine_pos_embed(jnp.asarray(pos), 16)), rtol=0, atol=1e-6)
 
 
+def test_forward_builds_its_host_tables_once_per_layout(oracle):
+    """The forward's host-built tables (level sine tables, reference
+    points, proposals, the deformable attention's normaliser) are copied to
+    the device once per (level layout, device), not in every forward: a
+    copy from the host mid-forward waits for the device. The cached tables
+    are the numpy builders' values."""
+    port = oracle[2]
+    px = torch.as_tensor(np.random.RandomState(1).randn(1, 40, 48, 3).astype(np.float32))
+    for fn in (tgd._level_constants, tgd._level_normalizer, tgd._sine_dim_t):
+        fn.cache_clear()
+    with torch.no_grad():
+        first = port(px, IDS)
+        misses = [fn.cache_info().misses for fn in
+                  (tgd._level_constants, tgd._level_normalizer, tgd._sine_dim_t)]
+        again = port(px, IDS)
+    assert [fn.cache_info().misses for fn in
+            (tgd._level_constants, tgd._level_normalizer, tgd._sine_dim_t)] == misses
+    assert misses[0] == misses[1] == 1
+    for a, b in zip(first, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with torch.no_grad():
+        shapes = tuple((int(x.shape[1]), int(x.shape[2])) for x in port._vision_maps(px))
+    d, temp = port.cfg.d_model, port.cfg.pe_temperature
+    c = tgd._level_constants(shapes, d, temp, torch.device("cpu"))
+    assert tgd._level_constants.cache_info().misses == 1  # the forward's own entry
+    props, valid = tgd._grid_proposals(shapes)
+    np.testing.assert_array_equal(c["proposals"].numpy(), props)
+    np.testing.assert_array_equal(c["valid"].numpy(), valid)
+    np.testing.assert_array_equal(c["ref"].numpy(), tgd._encoder_reference_points(shapes))
+    for p, (h, w) in zip(c["pos"], shapes):
+        np.testing.assert_array_equal(p.numpy(), tgd.sine_position_embedding(h, w, d, temp))
+
+
 def _forward_pair(oracle, px):
     _, jparams, port, cfg = oracle
     ref_l, ref_b = (np.asarray(a) for a in

@@ -83,3 +83,11 @@ def test_training_and_image_modules_are_among_the_checked():
         assert rel in files, rel
     for src in ("jpeg.cpp", "imgwarp.cpp", "png.cpp"):
         assert os.path.exists(os.path.join(PORT, "native", src)), src
+
+
+def test_parallel_modules_are_among_the_checked():
+    """The multi-device modules are discovered by the checks above."""
+    files = {os.path.relpath(p, PORT) for p in _port_files()}
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/ops.py",
+                "parallel/sharded.py"):
+        assert rel in files, rel
