@@ -62,7 +62,13 @@ seeded generators:
    videos for 4 steps and a ``--resume`` of 1 more, and ``eval_xmem
    --ckpt`` reads its checkpoint; the committed JPEG fixtures are decoded
    and held to their recorded ``cv2.imread`` SHA-256, and a stage-0 run
-   trains on them (``--static_root``);
+   trains on them (``--static_root``). Since slice 12 its dp part runs
+   ``train_xmem --dp 2`` at that width (global batch 2, 3 steps) as two
+   processes of a gloo group on the one card, held to a ``--dp 0`` run
+   from the same seeded weights (losses, the first averaged gradient, the
+   final checkpoint; both ranks' leaves bit-equal), ``train_step`` over
+   NCCL at world size 1 bit-equal to the plain step, and ``--dp 2`` with
+   no group refused on one GPU;
 12. ``click_track``: ``apps/click_track.py`` with SAM ViT-H and
    ``XMemConfig()`` read from checkpoints in the reference layouts, on a
    480x854 video of 24 PNG frames: two groups of four clicks (the second
@@ -2537,6 +2543,337 @@ def profile_train_step(dev, argv, ckpt: str) -> None:
         end_warm=args.end_warm))
 
 
+TRAIN_DP_STEPS = 3
+TRAIN_DP_LIMIT_S = 300    # each dp child's, killed after
+# tests/test_torch_xmem_train.py's rule for two runs of AdamW whose
+# gradients differ by rounding: an element may end more than a quarter step
+# (of lr) from the other run's only where that run's first moment was below
+# a tenth of its leaf's rms after some step (Adam's first steps are +-lr
+# whatever a gradient's size, so a gradient that is rounding noise around
+# zero may step the other way)
+TRAIN_DP_STEP_TOL, TRAIN_DP_FLIP_SHARE = 0.25, 0.1
+
+
+def train_dp_argv(data: str, weights: str, out: str, dp: int) -> list:
+    """The dp part's ``train_xmem`` flags: the full-width run's clip shape,
+    a global batch of 2, TRAIN_DP_STEPS steps from ``weights``."""
+    return ["--data_root", data, "--num_frames", "8", "--num_ref_frames", "3",
+            "--max_num_obj", "3", "--batch", "2", "--size", *map(str, TRAIN_HW),
+            *XMEM_WIDTH_ARGS, "--steps", str(TRAIN_DP_STEPS), "--log_every", "1",
+            "--load_network", weights, "--dp", str(dp), "--out", out]
+
+
+def train_dp_rank(rank: int, addr: str, device: str, argv: list, out: str) -> None:
+    """One rank of ``train_dp``'s two, in a process of its own (``python
+    -c``): a gloo group on ``device``, one card for both (NCCL puts no two
+    ranks on one device; gloo stages its all-reduce through the host, every
+    tensor stays on the card), ``train_xmem`` with ``argv`` on that device
+    with every step and every gradient average timed between
+    synchronisations; its row under ``out``, and rank 0's first averaged
+    gradient."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from d3fields_tpu_torch.apps import train_xmem as app
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+    from d3fields_tpu_torch.parallel import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    import torch.distributed.nn as _  # noqa: F401  (before the group: see initialize_distributed)
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2, rank=rank)
+    row = {"rank": rank, "backend": dist.get_backend(), "device": str(dev), "step_ms": [],
+           "allreduce_ms": []}
+    last = []
+    step, average = TR.train_step, ops.average_gradients
+
+    def timed_step(state, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        result = step(state, *args, **kwargs)
+        sync()
+        row["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        last[:] = [state]
+        return result
+
+    def timed_average(leaves, group=None):
+        sync()
+        t0 = time.perf_counter()
+        average(leaves, group)
+        sync()
+        row["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+        row["leaves_reduced"] = len(leaves)
+        row["bytes_reduced"] = sum(t.numel() * t.element_size() for t in leaves)
+        if rank == 0 and len(row["allreduce_ms"]) == 1:
+            torch.save(torch.cat([t.grad.reshape(-1) for t in leaves]).cpu(),
+                       os.path.join(out, "dp_first_grad.pt"))
+
+    TR.train_step, ops.average_gradients = timed_step, timed_average
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    try:
+        row["code"] = app.main(argv, device=dev)
+    finally:
+        TR.train_step, ops.average_gradients = step, average
+    sync()
+    row["launches"] = launch_counts()
+    row["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30 if cuda
+                                       else "not measured (CPU)")
+    digest = hashlib.sha256()
+    for _, t in TR.train_leaves(last[0].model):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    row["leaves_sha256"] = digest.hexdigest()
+    with open(os.path.join(out, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def leaf_readings(got: dict, want: dict, noise_share: float) -> dict:
+    """The global relative error of ``got`` against ``want`` (dicts of
+    arrays by leaf) and the least cosine over the leaves whose norm is at
+    least ``noise_share`` of the whole's."""
+    names = sorted(want)
+    g = np.concatenate([np.asarray(got[k], np.float64).ravel() for k in names])
+    r = np.concatenate([np.asarray(want[k], np.float64).ravel() for k in names])
+    cos = {}
+    for k in names:
+        a, b = np.asarray(got[k], np.float64).ravel(), np.asarray(want[k], np.float64).ravel()
+        if np.linalg.norm(b) >= noise_share * np.linalg.norm(r):
+            cos[k] = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    return {"global_rel_err": float(np.linalg.norm(g - r) / np.linalg.norm(r)),
+            "min_cos": min(cos.values()), "min_cos_leaf": min(cos, key=cos.get)}
+
+
+def train_dp_two_ranks(dev, data: str, out: str) -> tuple:
+    """(a) ``train_xmem --dp 2`` as two gloo ranks on the one card against
+    the one-process ``--dp 0`` run on the same data and seed: the losses at
+    TRAIN_LOSS_RTOL, the first step's averaged gradient and the final
+    checkpoints' AdamW first moments at TRAIN_GRAD_RTOL and
+    TRAIN_GRAD_MIN_COS, the final checkpoints' leaves by the
+    TRAIN_DP_STEP_TOL rule, both ranks' leaves bit-equal. Returns (its row,
+    the one-process run's launches)."""
+    import socket
+
+    from d3fields_tpu_torch.apps import train_xmem as app
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+
+    # Both runs start from xmem_model's weights (--load_network), not the
+    # app's network.init_params: from those He-normal weights the rollout
+    # amplifies rounding so far that two right runs part after a step
+    # (a CPU rehearsal at small widths: the first averaged gradient 3.8e-5
+    # from the one-process one, the first moments 6.5% apart after 3 steps).
+    weights = os.path.abspath(os.path.join(out, "XMem.pth"))
+    args = app.resolve_stage_args(app.build_parser().parse_args(
+        train_dp_argv(data, weights, out, 0)))
+    cfg = XMemConfig(key_dim=args.key_dim, value_dim=args.value_dim, hidden_dim=args.hidden_dim)
+    torch.save({k: v.cpu() for k, v in xmem_model(dev, cfg, seed=11).state_dict().items()},
+               weights)
+    first, noise = {}, {}
+    update = TR.apply_update
+
+    def recording_update(state):
+        leaves = TR.train_leaves(state.model)
+        if not first:
+            first.update({n: t.grad.detach().cpu().numpy() for n, t in leaves})
+        update(state)
+        for n, t in leaves:
+            mu = state.optimizer.state[t]["exp_avg"]
+            m = (mu.abs() < TRAIN_DP_FLIP_SHARE * mu.double().square().mean().sqrt()).cpu()
+            noise[n] = m if n not in noise else noise[n] | m
+
+    one = {"step_ms": [], "batch_ms": []}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    TR.apply_update = recording_update
+    try:
+        with timed_training(one):
+            code, counts = reset_and_count(lambda: app.main(
+                train_dp_argv(data, weights, os.path.join(out, "dp0"), 0), device=dev))
+    finally:
+        TR.apply_update = update
+    one["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check(code == 0, "train_xmem --dp 0 exited with an error")
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        addr = f"localhost:{sk.getsockname()[1]}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    device = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev)
+    argv = train_dp_argv(os.path.abspath(data), weights, os.path.abspath(os.path.join(out, "dp2")),
+                         2)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.train_dp_rank({r}, {addr!r}, "
+                               f"{device!r}, {argv!r}, {os.path.abspath(out)!r})"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=TRAIN_DP_LIMIT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    dp_seconds = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          "a train_xmem --dp 2 rank failed: " + " | ".join(e[-2000:] for _, e in logs))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(r["code"] == 0 for r in ranks), f"train_xmem --dp 2 ranks returned {ranks}")
+    check(ranks[0]["leaves_sha256"] == ranks[1]["leaves_sha256"],
+          "the two ranks' leaves differ after training")
+
+    losses, want = train_losses(os.path.join(out, "dp2")), train_losses(os.path.join(out, "dp0"))
+    check(len(losses) == len(want) == TRAIN_DP_STEPS, f"dp losses {losses} vs {want}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    flat = torch.load(os.path.join(out, "dp_first_grad.pt"), weights_only=True).numpy()
+    sizes = np.cumsum([v.size for v in first.values()])[:-1]
+    got = {n: v.reshape(first[n].shape) for n, v in zip(first, np.split(flat, sizes))}
+    grad = leaf_readings(got, first, TRAIN_GRAD_NOISE_SHARE)
+
+    a, b = (torch.load(os.path.join(out, run, "ckpt_final.pt"), map_location="cpu",
+                       weights_only=True) for run in ("dp2", "dp0"))
+    lr = args.lr
+    off, flips, worst = 0, 0, 0.0
+    for n in first:
+        err = (a["model"][n] - b["model"][n]).abs().double()
+        over = err > TRAIN_DP_STEP_TOL * lr
+        off += int((over & ~noise[n]).sum())
+        flips += int((over & noise[n]).sum())
+        worst = max(worst, float(err.max()) / lr)
+    moments = [{n: s["exp_avg"].numpy() for n, s in zip(first, c["optimizer"]["state"].values())}
+               for c in (a, b)]
+    row = {"ranks": ranks, "backend": ranks[0]["backend"], "world_size": 2,
+           "global_batch": 2, "steps": TRAIN_DP_STEPS, "children_seconds": dp_seconds,
+           "one_process": {**one, "losses": want},
+           "losses": losses, "loss_rel_err": loss_rel, "first_grad": grad,
+           "final_leaves": {"elements_off": off, "elements_off_at_noise": flips,
+                            "max_err_in_steps": worst, "step_tol": TRAIN_DP_STEP_TOL,
+                            "flip_share": TRAIN_DP_FLIP_SHARE},
+           "final_first_moment": leaf_readings(moments[0], moments[1], TRAIN_GRAD_NOISE_SHARE)}
+    check(max(loss_rel) <= TRAIN_LOSS_RTOL, f"train_xmem dp losses vs one process: {row}")
+    check(grad["global_rel_err"] <= TRAIN_GRAD_RTOL and grad["min_cos"] >= TRAIN_GRAD_MIN_COS,
+          f"train_xmem dp first gradient vs one process: {grad}")
+    check(off == 0, f"train_xmem dp final leaves vs one process: {row['final_leaves']}")
+    moment = row["final_first_moment"]
+    check(moment["global_rel_err"] <= TRAIN_GRAD_RTOL and moment["min_cos"] >= TRAIN_GRAD_MIN_COS,
+          f"train_xmem dp final first moments vs one process: {moment}")
+    return row, counts
+
+
+def train_dp_nccl(dev) -> dict:
+    """(b) ``train_step`` with the group of ``initialize_distributed`` over
+    NCCL at world size 1 (an explicit ``localhost`` address) against the
+    plain step: two steps of a small model, drawn rollouts, bit for bit.
+    The backward pass is not bit-reproducible from run to run on the card
+    (cuDNN's weight gradients and atomic scatters sum in varying order), so
+    the group's step is handed the plain step's gradients before its
+    average; the losses, the draws, the shard check, the average and the
+    update are its own. The gradients it computed are reported against
+    the plain ones."""
+    import socket
+
+    import torch.distributed as dist
+
+    from d3fields_tpu_torch.config import XMemConfig
+    from d3fields_tpu_torch.models.xmem import trainer as TR
+    from d3fields_tpu_torch.parallel import initialize_distributed, ops
+
+    cfg = XMemConfig(**TRAIN_HOLD)
+    rs = np.random.RandomState(3)
+    nb, T, O, H, W = 2, 4, 2, 32, 32
+    batch = TR.to_device_batch({"frames": rs.rand(nb, T, H, W, 3).astype(np.float32),
+                                "first_gt": (rs.rand(nb, O, H, W) > 0.5).astype(np.float32),
+                                "cls_gt": rs.randint(0, O + 1, (nb, T, H, W)),
+                                "selector": np.ones((nb, O), np.float32)}, dev)
+    grads, own = [], []
+    update, average = TR.apply_update, ops.average_gradients
+
+    def recording_update(state):
+        grads.append([t.grad.clone() for _, t in TR.train_leaves(state.model)])
+        update(state)
+
+    def handed_average(leaves, group=None):
+        given = grads[len(own)]
+        own.append(max(float((t.grad - g).abs().max()) for t, g in zip(leaves, given)))
+        for t, g in zip(leaves, given):
+            t.grad = g.clone()
+        average(leaves, group)
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    check(initialize_distributed(f"localhost:{port}", 1, 0, device=dev), "initialize_distributed")
+    try:
+        runs = []
+        for group, module, name, fn in ((None, TR, "apply_update", recording_update),
+                                        (dist.group.WORLD, ops, "average_gradients",
+                                         handed_average)):
+            setattr(module, name, fn)
+            try:
+                state = TR.init_train_state(xmem_model(dev, cfg, seed=7), TR.make_optimizer())
+                losses = []
+                for _ in range(2):
+                    state, out = TR.train_step(state, batch, num_ref_frames=2, group=group)
+                    losses.append(out["loss"])
+            finally:
+                TR.apply_update, ops.average_gradients = update, average
+            runs.append((torch.stack(losses), [t.detach().clone()
+                                               for _, t in TR.train_leaves(state.model)]))
+        row = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+               "losses": runs[0][0].tolist(),
+               "loss_equal": bool(torch.equal(runs[0][0], runs[1][0])),
+               "leaves_equal": all(torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1])),
+               "own_grad_max_abs_diff": own}
+    finally:
+        dist.destroy_process_group()
+    check(row["backend"] == ("nccl" if dev.type == "cuda" else "gloo") and row["loss_equal"]
+          and row["leaves_equal"] and len(own) == 2, f"train_step over NCCL at world size 1: {row}")
+    return row
+
+
+def train_dp(dev, data: str) -> dict:
+    """The ``train_xmem`` phase's dp part: (a) two gloo ranks on the one
+    card against one process, (b) the step over NCCL at world size 1, (c)
+    ``--dp 2`` with no group and one visible GPU refused. Two ranks on one
+    card show the dp code right on the card, not a multi-card speed.
+    Returns the one-process run's launches."""
+    import shutil
+
+    from d3fields_tpu_torch.apps import train_xmem as app
+
+    out = os.path.join(TRAIN_DIR, "dp")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    row, counts = train_dp_two_ranks(dev, data, out)
+    row["nccl_world_size_1"] = train_dp_nccl(dev)
+    refused = None
+    if torch.cuda.device_count() == 1:
+        try:
+            app.main(train_dp_argv(data, os.path.join(out, "XMem.pth"),
+                                   os.path.join(out, "refused"), 2), device=dev)
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and "2 CUDA device(s) asked for, 1 visible" in refused,
+              f"train_xmem --dp 2 on one GPU with no group: {refused!r}")
+    row["refused_on_one_gpu"] = refused
+    emit({"phase": "train_xmem", "path": "dp", **row, "seconds": time.perf_counter() - t0,
+          "note": "two ranks share one card over gloo: the dp code on the card, "
+                  "not a multi-card speed", "launches": counts})
+    shutil.rmtree(out, ignore_errors=True)  # 0.7 GB checkpoints
+    return counts
+
+
 def train_xmem(dev) -> dict:
     """Phase ``train_xmem``: gradients card vs CPU, full-width training with
     a resume and the checkpoint's evaluation, the JPEG fixtures and a
@@ -2592,6 +2929,7 @@ def train_xmem(dev) -> dict:
         g = json.load(f)["global"]
     check(all(0.0 <= g[k] <= 1.0 for k in ("J", "F", "JF")), f"eval of the checkpoint: {g}")
     profile_train_step(dev, argv, final)
+    counts["dp"] = train_dp(dev, data)
     shutil.rmtree(data, ignore_errors=True)
     torch.cuda.empty_cache()
     jpeg, counts["stage0"] = train_static(dev)

@@ -10,22 +10,44 @@ Counterpart of ``d3fields_tpu/apps/train_xmem.py``, with the same flags:
   python -m d3fields_tpu_torch.apps.train_xmem --stage 3 --davis_root <DAVIS> \\
       --yv_root <YouTubeVOS> --load_network out/xmem_train/ckpt_final.pt
 
+  # data parallel over 4 GPUs: the app starts one process per GPU itself,
+  # or runs under a launcher that started them
+  python -m d3fields_tpu_torch.apps.train_xmem --data_root <videos> --dp 4
+  torchrun --nproc_per_node 4 -m d3fields_tpu_torch.apps.train_xmem \\
+      --data_root <videos> --dp 4
+
 Stage presets (reference ``util/configuration.py:35-79``) fill batch size,
 iteration budget, LR schedule, clip length, num_ref_frames and the warm-up
 window; the temporal-skip curriculum and the low-augmentation finetune
-tail mirror ``train.py:155-236``. One process trains on one device: CUDA
-unless ``main`` is given another. ``--dp`` above 1 (the JAX app's
-data-parallel mesh) is not ported yet. Checkpoints are ``torch.save``
-files (``ckpt_<it>.pt``, ``ckpt_final.pt``) that ``--resume``,
-``--load_network`` and ``eval_xmem --ckpt`` read; ``--resume`` and
-``--load_network`` also take a JAX trainer pickle, and ``--load_network``
-the reference's ``XMem.pth``.
+tail mirror ``train.py:155-236``. Without ``--dp`` one process trains on
+one device: CUDA unless ``main`` is given another.
+
+``--dp N`` (N > 1) is the JAX app's data-parallel mesh as N processes of a
+``torch.distributed`` group (the reference's DDP, ``XMem/train.py:25``).
+``--batch`` is the global batch and must divide by N. Every rank builds
+the same loader, draws the global batch and keeps its rows;
+``trainer.train_step`` averages the gradients over the group. The group
+is the caller's where one is started, else a launcher's (``torchrun``,
+srun: ``parallel.initialize_distributed``), else the app spawns N local
+ranks, one per visible GPU, over NCCL (gloo when ``main`` is given the
+CPU). Each rank runs on the CUDA device made current where its group was
+started (``cuda:LOCAL_RANK``, or srun's ``SLURM_LOCALID``) unless
+``main`` is given a device. Rank 0's weights are broadcast at the start;
+only rank 0 prints, logs, writes checkpoints and dumps images.
+
+Checkpoints are ``torch.save`` files (``ckpt_<it>.pt``, ``ckpt_final.pt``)
+that ``--resume``, ``--load_network`` and ``eval_xmem --ckpt`` read;
+``--resume`` and ``--load_network`` also take a JAX trainer pickle, and
+``--load_network`` the reference's ``XMem.pth``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import socket
+import sys
 import time
 
 
@@ -96,8 +118,9 @@ def build_parser():
     p.add_argument("--start_warm", type=int, default=None)
     p.add_argument("--end_warm", type=int, default=None)
     p.add_argument("--dp", type=int, default=0,
-                   help="0 = single device; data parallelism over several "
-                        "GPUs is not ported yet (ROADMAP.md, Queue 1 item 13)")
+                   help="0 = single device; N > 1: N data-parallel ranks, one "
+                        "per GPU (a launcher's, or spawned here); --batch is "
+                        "the global batch")
     p.add_argument("--key_dim", type=int, default=64)
     p.add_argument("--value_dim", type=int, default=512)
     p.add_argument("--hidden_dim", type=int, default=64)
@@ -196,12 +219,108 @@ def initial_state(args, cfg, spec, device):
 
 def main(argv=None, *, device=None):
     """The CLI. ``device`` defaults to CUDA and raises when no GPU is visible."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = resolve_stage_args(build_parser().parse_args(argv))
-    if args.dp > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp}: data-parallel training over several GPUs (torch DDP) is not "
-            "ported yet; it comes with the multi-GPU slice (ROADMAP.md, Queue 1 item 13). "
-            "Train on one device with --dp 0.")
+    if args.dp <= 1:
+        return train(args, device)
+    import torch.distributed as dist
+
+    from d3fields_tpu_torch.parallel import initialize_distributed
+
+    if args.batch % args.dp:
+        raise ValueError(f"batch count {args.batch} not divisible by mesh axis 'dp' of "
+                         f"size {args.dp}")
+    started = not dist.is_initialized() and initialize_distributed(
+        device="cuda" if device is None else device)
+    if not dist.is_initialized():
+        return _spawn_ranks(argv, args.dp, device)
+    try:
+        if dist.get_world_size() != args.dp:
+            raise ValueError(f"--dp {args.dp} in a process group of "
+                             f"{dist.get_world_size()} ranks")
+        with contextlib.ExitStack() as stack:
+            if dist.get_rank():  # rank 0 alone prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            code = train(args, _rank_device(device))
+        dist.barrier()
+        return code
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _rank_device(device):
+    """This rank's device: the caller's, or the CUDA device made current
+    where the group was started (``initialize_distributed`` picks the
+    launcher's local rank) when the caller named no CUDA index."""
+    import torch
+
+    from d3fields_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _spawn_ranks(argv, world: int, device) -> int:
+    """Run ``main(argv, device=device)`` in ``world`` spawned local ranks of
+    a new group on a free ``localhost`` port: NCCL with one rank per
+    visible GPU (``RuntimeError`` when fewer are visible), or gloo on the
+    CPU. Returns 1 as soon as a rank fails (the others are stopped), else
+    0."""
+    import multiprocessing
+    from multiprocessing.connection import wait
+
+    import torch
+
+    from d3fields_tpu_torch.utils.device import resolve_device
+
+    if resolve_device(device).type == "cuda" and torch.cuda.device_count() < world:
+        raise RuntimeError(f"--dp {world}: {world} CUDA device(s) asked for, "
+                           f"{torch.cuda.device_count()} visible")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        addr = f"localhost:{sk.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(rank, world, addr, argv, device))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        running = procs
+        while running and not any(p.exitcode for p in procs):
+            wait([p.sentinel for p in running])
+            running = [p for p in running if p.exitcode is None]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    return 0 if all(p.exitcode == 0 for p in procs) else 1
+
+
+def _rank_main(rank: int, world: int, addr: str, argv, device) -> None:
+    """One spawned rank: start its group, train, leave the group."""
+    import torch.distributed as dist
+
+    from d3fields_tpu_torch.parallel import initialize_distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    initialize_distributed(addr, world, rank, device="cuda" if device is None else device)
+    try:
+        code = main(argv, device=device)
+    finally:
+        dist.destroy_process_group()
+    if code:
+        raise SystemExit(code)
+
+
+def train(args, device) -> int:
+    """The training loop on ``device``: in one process, or as this rank of
+    the process group when ``args.dp`` > 1 (its rows of each global batch;
+    rank 0 alone logs and writes)."""
     from d3fields_tpu_torch.config import XMemConfig
     from d3fields_tpu_torch.models.xmem import trainer as TR
     from d3fields_tpu_torch.models.xmem.data import max_skip_schedule, skip_at
@@ -217,8 +336,18 @@ def main(argv=None, *, device=None):
                 if scheduled and args.stage not in (None, 0) else [])
     spec = TR.make_optimizer(lr=args.lr, steps=args.lr_steps)
     state = initial_state(args, cfg, spec, device)
+    rank, shard = 0, args.batch
+    if args.dp > 1:
+        import torch.distributed as dist
 
-    logger = JsonlLogger(os.path.join(args.out, "train.jsonl"), "xmem")
+        from d3fields_tpu_torch.parallel import broadcast_tensors
+
+        rank, shard = dist.get_rank(), args.batch // args.dp
+        broadcast_tensors([t for _, t in TR.train_leaves(state.model)])
+    rows = slice(rank * shard, (rank + 1) * shard)
+    lead = rank == 0
+
+    logger = JsonlLogger(os.path.join(args.out, "train.jsonl"), "xmem") if lead else None
     integ = Integrator(logger)
     t0 = time.perf_counter()
     total_iters = args.steps + args.finetune
@@ -244,11 +373,16 @@ def main(argv=None, *, device=None):
             finetuning = True
             loader.set_finetune(True)
             print(f"[train_xmem] it={it} entering finetune phase")
+        # every rank draws the global batch from the same loader and keeps
+        # its rows, as a JAX process feeds shard_leading the global batch
         batch = loader.batch(args.batch)
         state, out = TR.train_step(
-            state, TR.to_device_batch(batch, device), num_ref_frames=args.num_ref_frames,
-            start_warm=args.start_warm, end_warm=args.end_warm)
+            state, TR.to_device_batch({k: v[rows] for k, v in batch.items()}, device),
+            num_ref_frames=args.num_ref_frames, start_warm=args.start_warm,
+            end_warm=args.end_warm)
         step += 1
+        if not lead:
+            continue
         pending_losses.append(out["loss"])
         if len(pending_losses) > MAX_PENDING_LOSSES:
             integ.add_dict({"loss": float(pending_losses.pop(0))})
@@ -266,9 +400,10 @@ def main(argv=None, *, device=None):
             _dump_train_images(args.out, state, batch, device)
         if step % args.save_every == 0:
             TR.save_checkpoint(os.path.join(args.out, f"ckpt_{state.it}.pt"), state)
-    TR.save_checkpoint(os.path.join(args.out, "ckpt_final.pt"), state)
-    logger.close()
-    print(f"[train_xmem] done; final checkpoint in {args.out}")
+    if lead:
+        TR.save_checkpoint(os.path.join(args.out, "ckpt_final.pt"), state)
+        logger.close()
+        print(f"[train_xmem] done; final checkpoint in {args.out}")
     return 0
 
 

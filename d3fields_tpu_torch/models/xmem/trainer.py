@@ -19,7 +19,15 @@ What is held to the JAX package:
   decayed by ``gamma`` for every boundary ``b <= k``;
 - the per-sample randomness (memory-frame subsets and deep-update coins)
   is drawn here from a ``torch.Generator``; a caller that holds JAX's
-  draws passes them as :class:`Rollout`.
+  draws passes them as :class:`Rollout`;
+- the data-parallel step (``train_step(..., group=)``) is the JAX step on
+  a batch laid over a mesh's ``dp`` axis: each rank holds its rows of the
+  global batch, draws the global batch's randomness and keeps its rows,
+  and averages the gradients of every leaf over the ranks, batch-norm
+  statistics included, before its AdamW step. ``torch.nn.parallel.
+  DistributedDataParallel`` is not used: it all-reduces only
+  ``parameters()`` and broadcasts rank 0's buffers over the others, and
+  here the running statistics are leaves that AdamW trains.
 """
 
 from __future__ import annotations
@@ -124,6 +132,11 @@ class Rollout:
 
     ref_frames: Dict[int, Tensor]
     deep_update: Optional[Tensor] = None
+
+    def rows(self, lo: int, hi: int) -> "Rollout":
+        """The choices of samples ``lo:hi`` (a rank's shard of the batch)."""
+        return Rollout({ti: r[lo:hi] for ti, r in self.ref_frames.items()},
+                       None if self.deep_update is None else self.deep_update[lo:hi])
 
 
 def draw_rollout(generator: torch.Generator, batch: int, num_frames: int,
@@ -318,26 +331,103 @@ def init_train_state(model: N.XMem, spec: OptimizerSpec) -> TrainState:
     return TrainState(model, opt, spec, 0)
 
 
+def _data_parallel(group) -> Optional[Tuple[int, int]]:
+    """(world size, rank) of the step's group: ``group`` whatever its size,
+    else the default group where one is initialized with more than one
+    rank; None for the one-process step."""
+    import torch.distributed as dist
+
+    if group is None and not (dist.is_available() and dist.is_initialized()
+                              and dist.get_world_size() > 1):
+        return None
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _reduce_shard_sizes(nb: int, group, device) -> tuple:
+    """Start the all-reduce of (nb, nb^2) over the ranks of ``group``, for
+    :func:`_check_equal_shards`. gloo sums host numbers at once. Over NCCL
+    the sums are on the card and come back to pinned host memory behind
+    an event: the check, made once the backward pass is queued, waits for
+    the work queued before this step and not for this step's own, so the
+    host stays a step ahead of the card."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) != "nccl":
+        n = torch.tensor([nb, nb * nb], dtype=torch.float64)
+        dist.all_reduce(n, group=group)
+        return n, None
+    n = torch.full((2,), float(nb), dtype=torch.float64, device=device)
+    n[1:] *= nb
+    dist.all_reduce(n, group=group)
+    host = torch.empty(2, dtype=torch.float64, pin_memory=True)
+    host.copy_(n, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return host, done
+
+
+def _check_equal_shards(sizes: tuple, nb: int, world: int) -> None:
+    """Raise on every rank unless every rank holds ``nb`` samples: with
+    unequal shards the ranks' mean of means is not the global mean (JAX's
+    ``NamedSharding`` needs the batch to divide by the mesh likewise).
+    ``(sum n)^2 == world * sum n^2`` holds only when all n are equal, and
+    every rank reads the same sums (``sizes``, from
+    :func:`_reduce_shard_sizes`) at every step, before the gradients are
+    averaged."""
+    host, done = sizes
+    if done is not None:
+        done.synchronize()
+    s1, s2 = host.tolist()
+    if s1 * s1 != world * s2:
+        raise ValueError(f"unequal batch shards over {world} ranks: {int(s1)} samples in all, "
+                         f"{nb} on this rank")
+
+
 def train_step(state: TrainState, batch: Dict[str, Tensor], *, num_ref_frames: int = 0,
                start_warm: int = 20000, end_warm: int = 70000,
-               rollout: Optional[Rollout] = None) -> Tuple[TrainState, Dict]:
+               rollout: Optional[Rollout] = None, group=None) -> Tuple[TrainState, Dict]:
     """One AdamW step on the batch's mean rollout loss (``trainer.py:229-257``).
     Updates ``state`` in place and returns it with ``{"loss": tensor}`` (the
     loss stays on the device: fetch it when it is needed). The rollout's
     choices are ``rollout``, else drawn from a generator seeded with the
-    iteration."""
+    iteration.
+
+    Data parallel over ``group`` (a ``torch.distributed`` group; the
+    default group when it is initialized with more than one rank): with W
+    ranks, ``batch`` is this rank's shard of a global batch of W * b rows,
+    rank r holding rows r * b to (r + 1) * b - 1, and every rank must hold
+    b (else ``ValueError`` on every rank, before the update). A drawn rollout is drawn for the global batch and cut to the rank's
+    rows (``rollout``, when given, is the rank's already). After the
+    backward pass every leaf's gradient is averaged over the group, the
+    batch-norm statistics' too, so each rank takes the one-process step on
+    the global batch; the returned loss is the global mean."""
+    nb, T = batch["frames"].shape[:2]
+    dp = _data_parallel(group)
+    world, rank = dp or (1, 0)
+    if dp:
+        sizes = _reduce_shard_sizes(nb, group, batch["frames"].device)
     if rollout is None:
-        nb, T = batch["frames"].shape[:2]
-        rollout = draw_rollout(torch.Generator().manual_seed(state.it), nb, T,
-                               num_ref_frames)
+        rollout = draw_rollout(torch.Generator().manual_seed(state.it), world * nb, T,
+                               num_ref_frames).rows(rank * nb, (rank + 1) * nb)
     losses, _ = sequence_loss(state.model, batch, state.it, start_warm=start_warm,
                               end_warm=end_warm, num_ref_frames=num_ref_frames,
                               rollout=rollout)
     loss = losses.mean()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if dp:
+        import torch.distributed as dist
+
+        from d3fields_tpu_torch.parallel import ops
+
+        _check_equal_shards(sizes, nb, world)
+        ops.average_gradients([t for g in state.optimizer.param_groups for t in g["params"]],
+                              group)
+        dist.all_reduce(loss, group=group)
+        loss /= world
     apply_update(state)
-    return state, {"loss": loss.detach()}
+    return state, {"loss": loss}
 
 
 def apply_update(state: TrainState) -> None:

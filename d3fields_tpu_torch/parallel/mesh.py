@@ -238,5 +238,12 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         resolve_device(device)  # raises where no GPU is visible
         local = int(os.environ.get("LOCAL_RANK", os.environ.get("SLURM_LOCALID", rank)))
         torch.cuda.set_device(local % torch.cuda.device_count())
+    # torch.distributed.nn's functions take group=group.WORLD as a default
+    # argument, bound at its first import. A process that first imports it
+    # while a group runs (its first torch.optim optimizer does, through
+    # torch._dynamo) holds that group past destroy_process_group until the
+    # interpreter exits, where gloo's threads can abort the process
+    # ("terminate called without an active exception"). So import it first.
+    import torch.distributed.nn as _  # noqa: F401
     dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
     return True

@@ -7,12 +7,18 @@ over a ``torch.distributed`` process group (NCCL on the card, gloo on the
 CPU). Both go through ``torch.distributed.nn.functional``, whose backward
 is the collective's transpose, so gradients flow through the global
 moments as they do through ``psum``.
+
+The data-parallel train step needs two more, which the JAX package never
+names because ``jit`` inserts the ``psum`` of the gradients itself:
+:func:`average_gradients` and :func:`broadcast_tensors`. They use only
+``all_reduce`` and ``broadcast``, the two collectives a gloo group also
+runs on CUDA tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -52,3 +58,44 @@ def all_gather_points(x: Tensor, group=None) -> Tensor:
     from torch.distributed.nn.functional import all_gather
 
     return torch.cat(all_gather(x, **_group(group)), dim=0)
+
+
+def _flat_layout(tensors: Sequence[Tensor]) -> None:
+    if len({(t.dtype, t.device) for t in tensors}) > 1:
+        raise ValueError("the tensors of one flattened collective share a dtype and a device")
+
+
+def average_gradients(leaves: Sequence[Tensor], group=None) -> None:
+    """Replace each leaf's ``.grad`` by its mean over the ranks of ``group``
+    (the default group when None): one all-reduce of every gradient
+    flattened together, divided by the world size. A leaf whose ``.grad``
+    is None counts as zeros, as ``jax.grad`` gives zeros, so every rank
+    reduces the same layout; after the call every leaf has a ``.grad``
+    (a view of the one reduced buffer)."""
+    import torch.distributed as dist
+
+    _flat_layout(leaves)
+    flat = torch.cat([(t.grad if t.grad is not None else torch.zeros_like(t)).reshape(-1)
+                      for t in leaves])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for t in leaves:
+        t.grad = flat[offset:offset + t.numel()].view_as(t)
+        offset += t.numel()
+
+
+def broadcast_tensors(tensors: Sequence[Tensor]) -> None:
+    """Overwrite ``tensors`` on every rank of the default group with rank
+    0's, in place and flattened into one broadcast: DDP's broadcast of the
+    state when it wraps a model."""
+    import torch.distributed as dist
+
+    _flat_layout(tensors)
+    with torch.no_grad():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.broadcast(flat, 0)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()

@@ -590,14 +590,6 @@ def test_train_xmem_staged_with_finetune_tail(tmp_path, capsys):
     assert torch.load(final, weights_only=True)["it"] == 4
 
 
-def test_train_xmem_dp_is_not_ported(tmp_path):
-    """--dp above 1 (torch DDP) waits for the multi-GPU slice."""
-    from d3fields_tpu_torch.apps import train_xmem
-
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_xmem.main(["--synthetic", "--dp", "2", "--out", str(tmp_path)], device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the interactive tools: click_track and interactive
 # ---------------------------------------------------------------------------

@@ -453,6 +453,7 @@ def test_sam_views_sharded_matches_unsharded_and_jax_sharded(sam_pair):
 # ---------------------------------------------------------------------------
 
 RANK_SCRIPT = r"""
+import os
 import sys
 import numpy as np
 import torch
@@ -473,7 +474,12 @@ gathered = all_gather_points(pts)
 np.savez(out, y=y.detach().numpy(), mean=mean.detach().numpy(), var=var.detach().numpy(),
          gx=x.grad.numpy(), gscale=scale.grad.numpy(), gbias=bias.grad.numpy(),
          gathered=gathered.detach().numpy(), gpts=pts.grad.numpy())
+torch.distributed.barrier()
 torch.distributed.destroy_process_group()
+# the group is gone with its threads, not held until the interpreter exits
+# (where gloo's threads abort the process)
+threads = [open(f"/proc/self/task/{t}/comm").read().strip() for t in os.listdir("/proc/self/task")]
+assert not [t for t in threads if "gloo" in t], threads
 """
 
 
@@ -487,7 +493,8 @@ def test_sync_batch_norm_and_all_gather_over_two_gloo_processes(tmp_path):
     """tests/test_parallel_train.py:40-58 across 2 processes: the global
     batch norm's output, moments and gradients (rtol 2e-4 / atol 2e-4),
     and the tiled all-gather with its gradient. Each rank runs under a
-    60 s limit and is killed after."""
+    60 s limit and is killed after, and leaves no gloo thread behind
+    ``destroy_process_group``."""
     rs = np.random.RandomState(1)
     data = dict(x=rs.randn(8, 6, 6, 16).astype(np.float32),
                 scale=(rs.rand(16) + 0.5).astype(np.float32),
