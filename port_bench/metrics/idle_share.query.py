@@ -1,0 +1,8 @@
+"""idle_share.query: 1 - the union of the device's busy intervals per profiled
+request (profiled after the window) over the mean request of the traced
+window, whose host clocks the profiler's host records do not stretch (%)."""
+from port_bench.metrics import _lib
+
+
+def read(rec):
+    return _lib.idle_percent(rec)
