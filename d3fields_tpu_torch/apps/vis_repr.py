@@ -62,6 +62,9 @@ def build_parser():
                    help="also np.savez the numeric intermediates (grid dist "
                         "field, mesh vertices/triangles, per-vertex "
                         "mask/color/PCA-descriptor values)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the program's spans: a chrome trace to PATH, "
+                        "their summary on stderr")
     return p
 
 
@@ -161,6 +164,7 @@ def main(argv=None, *, device=None):
     """The CLI. ``device`` defaults to CUDA and raises when no GPU is visible."""
     args = build_parser().parse_args(argv)
     from d3fields_tpu_torch.fields.fusion import Fusion
+    from d3fields_tpu_torch.utils.profiling import traced
 
     if args.synthetic:
         obs, queries, thresholds, boundaries, backend = synthetic_inputs(
@@ -190,8 +194,9 @@ def main(argv=None, *, device=None):
         feature_backend, mask_backend = build_real_backends(device=device)
         fusion = Fusion(num_cam=args.num_cam, feature_backend=feature_backend,
                         mask_backend=mask_backend, device=device)
-    run(fusion, obs, queries, thresholds, boundaries, args.step, args.out,
-        pca_path=args.pca_path, dump=args.dump_arrays)
+    with traced(args.trace):
+        run(fusion, obs, queries, thresholds, boundaries, args.step, args.out,
+            pca_path=args.pca_path, dump=args.dump_arrays)
     return 0
 
 

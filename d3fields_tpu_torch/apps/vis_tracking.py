@@ -71,6 +71,9 @@ def build_parser():
                    help="each frame through serving.FusedFrameStep (DINOv2 -> XMem "
                         "propagation -> field -> tracking); needs the XMem tracker "
                         "of the recorded-scene path")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the program's spans: a chrome trace to PATH, "
+                        "their summary on stderr")
     return p
 
 
@@ -92,7 +95,14 @@ SYNTHETIC_BOUNDARIES = Boundaries(-0.3, 0.6, -0.4, 0.4, 0.001, 0.4)
 
 def main(argv=None, *, device=None):
     """The CLI. ``device`` defaults to CUDA and raises when no GPU is visible."""
+    from d3fields_tpu_torch.utils.profiling import traced
+
     args = build_parser().parse_args(argv)
+    with traced(args.trace):
+        return _track(args, device)
+
+
+def _track(args, device):
     from d3fields_tpu_torch.fields.fusion import Fusion
     from d3fields_tpu_torch.serving import AsyncFrameLoop
     from d3fields_tpu_torch.track.keypoints import select_keypoints

@@ -30,6 +30,7 @@ from d3fields_tpu_torch.config import Boundaries, D3FieldsConfig
 from d3fields_tpu_torch.fields import geometry, kernels
 from d3fields_tpu_torch.fields.state import FieldState, state_from_obs
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 from d3fields_tpu_torch.utils.seeding import set_seed
 
 Tensor = torch.Tensor
@@ -63,26 +64,29 @@ def _fused_distance(state: FieldState, pts: Tensor):
     all_invalid (N,)).
     """
     mu = state.mu
-    xy, dist_raw, in_front, inter_depth, _ = _distance_terms(state, pts)
-    dist_valid = (inter_depth > 0.0) & in_front & (dist_raw > -mu)
-    weight = torch.exp(torch.clamp(mu - torch.abs(dist_raw), max=0.0) / mu)
-    dist = torch.clamp(dist_raw, -mu, mu)
+    with tracer.span("fields.distance"):
+        xy, dist_raw, in_front, inter_depth, _ = _distance_terms(state, pts)
+        dist_valid = (inter_depth > 0.0) & in_front & (dist_raw > -mu)
+        weight = torch.exp(torch.clamp(mu - torch.abs(dist_raw), max=0.0) / mu)
+        dist = torch.clamp(dist_raw, -mu, mu)
 
-    vf = dist_valid.to(pts.dtype)
-    denom = vf.sum(dim=0)
-    dist_fused = (dist * vf).sum(dim=0) / (denom + _EPS)
-    all_invalid = denom == 0
-    dist_fused = torch.where(all_invalid, torch.full_like(dist_fused, INVALID_DIST), dist_fused)
-    outputs = {"dist": dist_fused, "valid_mask": torch.logical_not(all_invalid)}
-    return xy, outputs, vf * weight, denom, all_invalid
+        vf = dist_valid.to(pts.dtype)
+        denom = vf.sum(dim=0)
+        dist_fused = (dist * vf).sum(dim=0) / (denom + _EPS)
+        all_invalid = denom == 0
+        dist_fused = torch.where(all_invalid, torch.full_like(dist_fused, INVALID_DIST),
+                                 dist_fused)
+        outputs = {"dist": dist_fused, "valid_mask": torch.logical_not(all_invalid)}
+        return xy, outputs, vf * weight, denom, all_invalid
 
 
 def _bilinear_views(m: Tensor, xy: Tensor, vw: Tensor, image_hw) -> Tensor:
     """``sum_v bilinear(m[v], xy[v]) * vw[v]``, one view at a time: (N, C)."""
     acc = None
-    for v in range(m.shape[0]):
-        contrib = geometry.sample_map_bilinear(m[v], xy[v], image_hw) * vw[v][:, None]
-        acc = contrib if acc is None else acc + contrib
+    with tracer.span("fields.bilinear"):
+        for v in range(m.shape[0]):
+            contrib = geometry.sample_map_bilinear(m[v], xy[v], image_hw) * vw[v][:, None]
+            acc = contrib if acc is None else acc + contrib
     return acc
 
 
@@ -149,28 +153,30 @@ def batch_eval(
     """
     if not fused and matmul_dtype != "float32":
         raise ValueError("matmul_dtype applies to the fused query only (fused=True)")
-    pts = torch.as_tensor(pts).to(device=state.device, dtype=state.depth.dtype)
-    n = pts.shape[0]
-    names = tuple(return_names)
-    maps = state.feature_maps(names) if names else {}
-    dev, dt = state.device, pts.dtype
-    out = {"dist": torch.empty(n, dtype=dt, device=dev),
-           "valid_mask": torch.empty(n, dtype=torch.bool, device=dev)}
-    for name in names:
-        out[name] = torch.empty((n, maps[name].shape[-1]), dtype=dt, device=dev)
-    if fused:
-        # the bf16 route's tables rounded once, not at every tile's launch
-        state = kernels.round_patch_maps(state, names, matmul_dtype)
+    with tracer.span("fields.query", memory=True):
+        pts = torch.as_tensor(pts).to(device=state.device, dtype=state.depth.dtype)
+        n = pts.shape[0]
+        names = tuple(return_names)
+        maps = state.feature_maps(names) if names else {}
+        dev, dt = state.device, pts.dtype
+        out = {"dist": torch.empty(n, dtype=dt, device=dev),
+               "valid_mask": torch.empty(n, dtype=torch.bool, device=dev)}
+        for name in names:
+            out[name] = torch.empty((n, maps[name].shape[-1]), dtype=dt, device=dev)
+        if fused:
+            # the bf16 route's tables rounded once, not at every tile's launch
+            state = kernels.round_patch_maps(state, names, matmul_dtype)
 
-        def query(st, p, nm):
-            return kernels.eval_field_fused(st, p, nm, matmul_dtype)
-    else:
-        query = eval_field
-    with torch.no_grad():
-        for s in range(0, n, tile):
-            for k, v in query(state, pts[s:s + tile], names).items():
-                out[k][s:s + tile] = v
-    return out
+            def query(st, p, nm):
+                return kernels.eval_field_fused(st, p, nm, matmul_dtype)
+        else:
+            query = eval_field
+        with torch.no_grad():
+            for s in range(0, n, tile):
+                with tracer.span("fields.tile"):
+                    for k, v in query(state, pts[s:s + tile], names).items():
+                        out[k][s:s + tile] = v
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -227,20 +233,23 @@ class Fusion:
         depth / pose / K and fills per-view DINOv2 patch descriptors from the
         feature backend on a (H//10, W//10) patch grid.
         """
-        self.num_cam = obs["color"].shape[0]
-        dino_feats = obs.get("dino_feats")
-        if dino_feats is None and self.feature_backend is not None:
-            H, W = obs["color"].shape[1:3]
-            dino_feats = self.feature_backend(obs["color"], patch_hw=(H // 10, W // 10))
-        mask = obs.get("mask")
-        if mask is None and self.state is not None:
-            mask = self.state.mask  # carry tracked masks across frames
-        self.state = state_from_obs(
-            obs, dino_feats=dino_feats, mask=mask, mu=self.config.fusion.mu,
-            device=self.device,
-        )
-        self.curr_obs = dict(obs)
-        return self.state
+        with tracer.span("fields.update", memory=True):
+            self.num_cam = obs["color"].shape[0]
+            dino_feats = obs.get("dino_feats")
+            if dino_feats is None and self.feature_backend is not None:
+                H, W = obs["color"].shape[1:3]
+                with tracer.span("fields.update.features"):
+                    dino_feats = self.feature_backend(obs["color"], patch_hw=(H // 10, W // 10))
+            mask = obs.get("mask")
+            if mask is None and self.state is not None:
+                mask = self.state.mask  # carry tracked masks across frames
+            with tracer.span("fields.update.ingest"):
+                self.state = state_from_obs(
+                    obs, dino_feats=dino_feats, mask=mask, mu=self.config.fusion.mu,
+                    device=self.device,
+                )
+            self.curr_obs = dict(obs)
+            return self.state
 
     def set_mask(self, mask) -> FieldState:
         """Attach (V, H, W, NI) instance-mask probabilities to the state."""

@@ -31,6 +31,7 @@ import torch
 
 from d3fields_tpu_torch import _build
 from d3fields_tpu_torch.fields import geometry
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 
@@ -224,9 +225,11 @@ def eval_field_fused(
         if (h, w_) == (H, W):
             acc = fusion._bilinear_views(m, xy, vw, (H, W))
         else:
-            idx, tw = geometry.bilinear_taps(xy, (H, W), (h, w_))
-            acc = fused_weighted_interp(
-                m.reshape(V, h * w_, C).contiguous(), idx, (tw * vw[..., None]).contiguous(),
-                matmul_dtype)
+            with tracer.span("fields.taps"):
+                idx, tw = geometry.bilinear_taps(xy, (H, W), (h, w_))
+                tw = (tw * vw[..., None]).contiguous()
+            with tracer.span("fields.kernel"):
+                acc = fused_weighted_interp(m.reshape(V, h * w_, C).contiguous(), idx, tw,
+                                            matmul_dtype)
         outputs[name] = fusion._normalise(acc, denom, all_invalid)
     return outputs

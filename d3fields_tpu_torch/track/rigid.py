@@ -26,6 +26,7 @@ from d3fields_tpu_torch.config import TrackingConfig
 from d3fields_tpu_torch.fields.fusion import eval_field
 from d3fields_tpu_torch.fields.state import FieldState
 from d3fields_tpu_torch.ops.so3 import rigid_transform_points
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 
@@ -115,17 +116,19 @@ def rigid_tracking_steps(
     params = {"t": t, "log_r": log_r}
     opt = torch.optim.Adam([t, log_r], lr=cfg.lr, betas=BETAS, eps=1e-8)
     losses, match, last = [], None, None
-    for step in range(1, cfg.iters + 1):
-        opt.param_groups[0]["lr"] = cfg.lr * optax_lr_factor(step)
-        opt.zero_grad(set_to_none=True)
-        loss, aux = tracking_loss(params, state, src_feats, last_pts, bounds_lo,
-                                  bounds_hi, cfg)
-        loss.backward()
-        losses.append(torch.stack([aux["feat_loss"], aux["dist_loss"], aux["reg_loss"],
-                                   aux["oob_loss"]]).detach())
-        match = aux["match_pts"].detach()
-        last = (t.detach().clone(), log_r.detach().clone())
-        opt.step()
+    with tracer.span("track.rigid"):
+        for step in range(1, cfg.iters + 1):
+            with tracer.span("track.step"):
+                opt.param_groups[0]["lr"] = cfg.lr * optax_lr_factor(step)
+                opt.zero_grad(set_to_none=True)
+                loss, aux = tracking_loss(params, state, src_feats, last_pts, bounds_lo,
+                                          bounds_hi, cfg)
+                loss.backward()
+                losses.append(torch.stack([aux["feat_loss"], aux["dist_loss"],
+                                           aux["reg_loss"], aux["oob_loss"]]).detach())
+                match = aux["match_pts"].detach()
+                last = (t.detach().clone(), log_r.detach().clone())
+                opt.step()
     return {
         "match_pts": match,
         "t": last[0],

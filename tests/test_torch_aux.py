@@ -31,27 +31,15 @@ from d3fields_tpu_torch.utils import profiling
 
 
 def test_stage_timer_and_throughput():
-    """tests/test_aux.py:16-30's assertions."""
-    st = profiling.StageTimer()
+    """tests/test_aux.py:16-30's assertions on Throughput; the JAX
+    package's StageTimer has no counterpart here (the port's spans are
+    ``profiling.tracer``'s, tests/test_torch_tracing.py)."""
     x = torch.arange(1024.0)
-    for _ in range(3):
-        with st.stage("square") as h:
-            h["out"] = {"y": [x * x]}
-    assert "square" in st.report() and len(st.times["square"]) == 3
     tp = profiling.Throughput()
     tp.start()
     tp.stop(units=1024, result_tree=x + 1)
     assert tp.per_second > 0 and tp.total_units == 1024
     profiling.sync({"a": (x, [x]), "b": 3})
-
-
-def test_measured_peak_and_dispatch_floor_on_the_cpu():
-    assert profiling.measured_matmul_peak_tflops(torch.float32, n=64, chain=2, repeats=2,
-                                                 device="cpu") > 0
-    assert profiling.measured_dispatch_floor_ms(3, device="cpu") > 0
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            profiling.measured_dispatch_floor_ms(1)
 
 
 def test_metrics_and_jsonl(tmp_path):
