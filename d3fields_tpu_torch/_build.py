@@ -22,7 +22,10 @@ from typing import Dict, Iterable
 from d3fields_tpu_torch.native_build import lib_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("fused_interp", "deform_gather")
+SOURCES = ("fused_interp", "field_tile", "deform_gather")
+# the sources one load builds together, each wave one set of parallel
+# nvcc: the field query's two kernels, then segmentation's
+WAVES = (("fused_interp", "field_tile"), ("deform_gather",))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -78,8 +81,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    """The loaded library of ``csrc/<name>.cu``, built first if missing,
+    with the other missing libraries of its wave (:data:`WAVES`)."""
     if name not in _libs:
-        build_all((name,))
+        build_all(next((w for w in WAVES if name in w), (name,)))
         _libs[name] = ctypes.CDLL(lib_path(name))
     return _libs[name]

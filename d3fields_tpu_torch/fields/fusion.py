@@ -145,11 +145,11 @@ def batch_eval(
     Replaces the reference's 60k-chunk host loop (``Fusion.batch_eval``,
     ``fusion.py:526-545``). Outputs are allocated once at full size and each
     tile is written into its slice; the ragged last tile is just shorter.
-    ``fused=True`` queries through :func:`kernels.eval_field_fused` (the CUDA
-    kernel on the card) at ``matmul_dtype`` ('float32', or 'bfloat16' for
-    the kernel's bf16 route), ``fused=False`` through :func:`eval_field`
-    (f32 only). Runs without autograd: differentiate :func:`eval_field`
-    instead.
+    ``fused=True`` queries through :func:`kernels.eval_field_fused` (on the
+    card two CUDA launches a tile, writing into the output slices) at
+    ``matmul_dtype`` ('float32', or 'bfloat16' for the kernel's bf16
+    route), ``fused=False`` through :func:`eval_field` (f32 only). Runs
+    without autograd: differentiate :func:`eval_field` instead.
     """
     if not fused and matmul_dtype != "float32":
         raise ValueError("matmul_dtype applies to the fused query only (fused=True)")
@@ -167,15 +167,17 @@ def batch_eval(
             # the bf16 route's tables rounded once, not at every tile's launch
             state = kernels.round_patch_maps(state, names, matmul_dtype)
 
-            def query(st, p, nm):
-                return kernels.eval_field_fused(st, p, nm, matmul_dtype)
+            def query(st, p, nm, dst):
+                kernels.eval_field_fused(st, p, nm, matmul_dtype, out=dst)
         else:
-            query = eval_field
+            def query(st, p, nm, dst):
+                for k, v in eval_field(st, p, nm).items():
+                    dst[k].copy_(v)
         with torch.no_grad():
             for s in range(0, n, tile):
                 with tracer.span("fields.tile"):
-                    for k, v in query(state, pts[s:s + tile], names).items():
-                        out[k][s:s + tile] = v
+                    query(state, pts[s:s + tile], names,
+                          {k: v[s:s + tile] for k, v in out.items()})
         return out
 
 

@@ -14,18 +14,25 @@ Counterpart of ``d3fields_tpu/fields/kernels.py:56-165, 259-369``:
   through the kernel's bf16-table entry. The default here is 'float32',
   the JAX package's choice off a TPU.
 - :func:`eval_field_fused` is ``fusion.eval_field`` with every patch-grid
-  descriptor map fused through that kernel. The nearest-depth visibility
-  tap and the full-resolution mask/colour taps were XLA gathers in the JAX
-  package, not Pallas; here they are plain torch indexing. The TPU tap
-  layouts (packed 2x2-corner table, 128-lane row gathers, the one-hot
-  matmul and its ``MAX_ONEHOT_PIXELS`` switch) are not carried over: the
-  kernel takes a patch-grid map of any size.
+  descriptor map fused through that kernel. On the card a tile is two
+  launches: :func:`field_tile` (``csrc/field_tile.cu``) does the tile's
+  point-wise work (projection, the nearest-depth tap, the visibility
+  terms, the patch grid's taps with the normalisation folded in, the
+  full-resolution maps) and writes the distance, the validity and the
+  full-resolution answers in place; the descriptor kernel then writes its
+  normalised rows in place. A query beyond the tile kernel's limits (a
+  float64 state, more views, maps or grids than it takes, a gradient)
+  raises there. On the CPU every tile runs the plain chain
+  :func:`_eval_field_fused_plain`, plain torch around the descriptor
+  kernel, which is also the tile kernel's oracle. The TPU tap layouts (packed 2x2-corner table, 128-lane
+  row gathers, the one-hot matmul and its ``MAX_ONEHOT_PIXELS`` switch)
+  are not carried over: the kernel takes a patch-grid map of any size.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,6 +50,10 @@ SMEM_PER_BLOCK = 232_448
 SLICE_CHANNELS = (16, 8)
 SLICE_CHANNELS_BF16 = (32, 16)
 MATMUL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the most views and full-resolution maps one tile kernel launch takes
+# (csrc/field_tile.cu: kMaxViews, kMaxMaps)
+TILE_MAX_VIEWS = 8
+TILE_MAX_MAPS = 4
 
 
 def _entry(symbol: str):
@@ -58,6 +69,14 @@ def _kernel():
 
 def _kernel_bf16():
     return _entry("d3f_fused_weighted_interp_bf16")
+
+
+def _tile_kernel():
+    fn = _build.load("field_tile").d3f_field_tile
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
+                   + [ctypes.c_double, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _matmul_dtype(matmul_dtype: str) -> torch.dtype:
@@ -86,13 +105,15 @@ def slice_channels(V: int, P: int, C: int, table_dtype: torch.dtype = torch.floa
 
 
 def fused_weighted_interp_plain(feats: Tensor, idx: Tensor, w: Tensor,
-                                matmul_dtype: str = "float32") -> Tensor:
+                                matmul_dtype: str = "float32", *,
+                                out: Optional[Tensor] = None) -> Tensor:
     """Plain PyTorch version: index, multiply, sum over taps and views.
 
     A tap whose index lies outside [0, P) contributes nothing, as in the
     TPU kernel (its one-hot compare matches no row). At ``matmul_dtype``
     'bfloat16' the table and the weights are rounded to bf16 first, and
-    the products summed in f32.
+    the products summed in f32. The sum is copied into ``out`` where one
+    is given.
     """
     dt = _matmul_dtype(matmul_dtype)
     feats = feats.to(dt).float()
@@ -101,15 +122,16 @@ def fused_weighted_interp_plain(feats: Tensor, idx: Tensor, w: Tensor,
     inb = (idx >= 0) & (idx < P)
     safe = torch.where(inb, idx, torch.zeros_like(idx)).long()
     wz = w * inb.to(w.dtype)
-    out = torch.zeros((idx.shape[1], C), dtype=torch.float32, device=feats.device)
+    acc = torch.zeros((idx.shape[1], C), dtype=torch.float32, device=feats.device)
     for v in range(V):
         for t in range(4):
-            out = out + feats[v][safe[v, :, t]] * wz[v, :, t, None]
-    return out
+            acc = acc + feats[v][safe[v, :, t]] * wz[v, :, t, None]
+    return acc if out is None else out.copy_(acc)
 
 
 def fused_weighted_interp(feats: Tensor, idx: Tensor, w: Tensor,
-                          matmul_dtype: str = "float32") -> Tensor:
+                          matmul_dtype: str = "float32", *,
+                          out: Optional[Tensor] = None) -> Tensor:
     """Multi-view weighted bilinear interpolation.
 
     Args:
@@ -122,6 +144,10 @@ def fused_weighted_interp(feats: Tensor, idx: Tensor, w: Tensor,
         An f32 ``feats`` is cast to it at each call (:func:`round_patch_maps`
         rounds a state's maps once instead); the kernel rounds ``w`` in
         registers.
+
+      out: optional contiguous (N, C) float32 tensor on ``feats``' device
+        (a view, such as a slice of a larger output) to write the sum
+        into; returned. On the card it must be 16-byte aligned.
 
     Returns: (N, C) float32 — ``sum_v sum_tap w * feats[v, idx]``.
 
@@ -144,8 +170,14 @@ def fused_weighted_interp(feats: Tensor, idx: Tensor, w: Tensor,
             f"{feats.dtype}, {w.dtype}, {idx.dtype}")
     if not (feats.device == idx.device == w.device):
         raise ValueError("feats, idx and w must lie on one device")
+    if out is not None:
+        if out.dtype != torch.float32:
+            raise TypeError(f"out must be float32, got {out.dtype}")
+        if tuple(out.shape) != (N, C) or not out.is_contiguous() or out.device != feats.device:
+            raise ValueError(f"out must be a contiguous {(N, C)} tensor on {feats.device}, got "
+                             f"{tuple(out.shape)} on {out.device}")
     if feats.device.type == "cpu":
-        return fused_weighted_interp_plain(feats, idx, w, matmul_dtype)
+        return fused_weighted_interp_plain(feats, idx, w, matmul_dtype, out=out)
     if feats.device.type != "cuda":
         raise ValueError(f"no kernel for device {feats.device}")
     feats = feats.to(dt)
@@ -153,7 +185,10 @@ def fused_weighted_interp(feats: Tensor, idx: Tensor, w: Tensor,
         raise ValueError("the kernel takes contiguous feats, idx and w")
     if idx.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("the kernel reads idx and w 16 bytes at a time: they must be 16-byte aligned")
-    out = torch.empty((N, C), dtype=torch.float32, device=feats.device)
+    if out is None:
+        out = torch.empty((N, C), dtype=torch.float32, device=feats.device)
+    elif out.data_ptr() % 16:
+        raise ValueError("the kernel writes out 16 bytes at a time: it must be 16-byte aligned")
     if N == 0 or C == 0:
         return out
     # the shared-memory route copies the table 16 bytes at a time
@@ -195,11 +230,104 @@ def round_patch_maps(state, return_names: Tuple[str, ...], matmul_dtype: str = "
     return state.replace(**changes) if changes else state
 
 
+def field_tile(state, pts: Tensor, out: Dict[str, Tensor], full_maps: Dict[str, Tensor],
+               idx: Optional[Tensor] = None, tw: Optional[Tensor] = None,
+               patch_hw: Tuple[int, int] = (0, 0)) -> None:
+    """One launch of ``csrc/field_tile.cu`` over the (N, 3) points ``pts``:
+    the point-wise work of a field-query tile, written in place.
+
+    Writes ``out['dist']`` (N,) float32 and ``out['valid_mask']`` (N,)
+    bool as ``fusion._fused_distance`` computes them, ``out[name]`` (N, C)
+    for each full-resolution map of ``full_maps`` (name: (V, H, W, C)
+    float32) as ``fusion._bilinear_views`` and ``fusion._normalise`` give
+    it, and, where ``idx`` and ``tw`` ((V, N, 4) int32 and float32,
+    16-byte aligned) are given, the taps of a ``patch_hw`` grid as
+    ``geometry.bilinear_taps`` gives them, their weights times the view's
+    fusion weight and ``1 / (denom + 1e-6)``: :func:`fused_weighted_interp`
+    over them sums the normalised descriptor. ``state`` is a float32
+    FieldState on the points' CUDA device, with at most
+    :data:`TILE_MAX_VIEWS` views and :data:`TILE_MAX_MAPS` maps in
+    ``full_maps``; every output is contiguous. ``field_tile.launches``
+    counts the launches.
+    """
+    n = pts.shape[0]
+    V = state.num_views
+    H, W = state.image_hw
+    names = tuple(full_maps)
+    if V > TILE_MAX_VIEWS or len(names) > TILE_MAX_MAPS:
+        raise ValueError(f"the tile kernel takes at most {TILE_MAX_VIEWS} views and "
+                         f"{TILE_MAX_MAPS} full-resolution maps, got {V} and {len(names)}")
+    if (idx is None) != (tw is None):
+        raise ValueError("give both idx and tw, or neither")
+    taps = () if idx is None else (idx, tw)
+    want = [(pts, (n, 3), torch.float32), (out["dist"], (n,), torch.float32),
+            (out["valid_mask"], (n,), torch.bool),
+            *[(t, (V, n, 4), dt) for t, dt in zip(taps, (torch.int32, torch.float32))],
+            *[(out[k], (n, full_maps[k].shape[-1]), torch.float32) for k in names]]
+    for t, shape, dt in want:
+        if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous() \
+                or t.device != pts.device:
+            raise ValueError(f"the tile kernel takes a contiguous {shape} {dt} on {pts.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if any(t.data_ptr() % 16 for t in taps):
+        raise ValueError("the tile kernel writes idx and tw 16 bytes at a time: they must be "
+                         "16-byte aligned")
+    if n == 0:
+        return
+    geom = [state.pose.contiguous(), state.K.contiguous(), state.depth.contiguous()]
+    maps = [full_maps[k].contiguous() for k in names]
+    maps_p = (ctypes.c_void_p * TILE_MAX_MAPS)(*[m.data_ptr() for m in maps])
+    outs_p = (ctypes.c_void_p * TILE_MAX_MAPS)(*[out[k].data_ptr() for k in names])
+    chans = (ctypes.c_int64 * TILE_MAX_MAPS)(*[m.shape[-1] for m in maps])
+    taps_p = [t.data_ptr() for t in taps] or [None, None]
+    with torch.cuda.device(pts.device):
+        err = _tile_kernel()(
+            pts.data_ptr(), *[g.data_ptr() for g in geom], out["dist"].data_ptr(),
+            out["valid_mask"].data_ptr(), *taps_p,
+            maps_p, outs_p, chans, len(names), V, H, W, *patch_hw, n, state.mu,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"field_tile launch failed: CUDA error {err}")
+    field_tile.launches += 1
+
+
+field_tile.launches = 0
+
+
+def _tile_kernel_refusal(state, pts: Tensor, maps: Dict[str, Tensor]) -> Optional[str]:
+    """Why :func:`field_tile` cannot take the tile, or None where it can:
+    it takes a float32 state, points and full-resolution maps on the
+    points' device, at most ``TILE_MAX_VIEWS`` views and ``TILE_MAX_MAPS``
+    full-resolution maps, every other map on one patch grid, and nothing
+    that asks for a gradient."""
+    H, W = state.image_hw
+    full = [m for m in maps.values() if tuple(m.shape[1:3]) == (H, W)]
+    grids = {tuple(m.shape[1:3]) for m in maps.values()} - {(H, W)}
+    tensors = [pts, state.depth, state.pose, state.K, *full]
+    if any(t.device != pts.device for t in [*tensors, *maps.values()]):
+        return "the state and the points lie on more than one device"
+    if any(t.dtype != torch.float32 for t in tensors):
+        return (f"it takes float32 points, geometry and full-resolution maps, got "
+                f"{sorted({str(t.dtype) for t in tensors})}")
+    if state.num_views > TILE_MAX_VIEWS:
+        return f"it takes at most {TILE_MAX_VIEWS} views, got {state.num_views}"
+    if len(full) > TILE_MAX_MAPS:
+        return f"it takes at most {TILE_MAX_MAPS} full-resolution maps, got {len(full)}"
+    if len(grids) > 1:
+        return f"it takes one patch grid, got {sorted(grids)}"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [*tensors, *maps.values()]):
+        return "it has no backward: query under torch.no_grad, or differentiate fusion.eval_field"
+    return None
+
+
 def eval_field_fused(
     state,
     pts: Tensor,
     return_names: Tuple[str, ...] = ("dino_feats", "mask"),
     matmul_dtype: str = "float32",
+    *,
+    out: Optional[Dict[str, Tensor]] = None,
 ) -> Dict[str, Tensor]:
     """Drop-in fused replacement for ``fusion.eval_field``.
 
@@ -207,13 +335,67 @@ def eval_field_fused(
     through :func:`fused_weighted_interp` at ``matmul_dtype`` (the JAX
     function picks 'bfloat16' on a TPU and 'float32' elsewhere; here the
     caller picks, f32 by default); full-resolution maps and the distance
-    terms are computed as in ``eval_field``.
+    terms are computed as in ``eval_field``: on the card by
+    :func:`field_tile` (counted as ``query_tiles_fused`` by the tracer),
+    which raises a ValueError naming the limit a query exceeds; on the CPU
+    by the plain chain (``query_tiles_plain``).
+
+    ``out``: tensors to write the answers into, 'dist' (N,), 'valid_mask'
+    (N,) and each name's (N, C), contiguous (``batch_eval`` passes slices
+    of its outputs); returned.
     """
     _matmul_dtype(matmul_dtype)
+    names = tuple(return_names)
+    maps = state.feature_maps(names)
+    if pts.device.type == "cpu":
+        tracer.count("query_tiles_plain")
+        got = _eval_field_fused_plain(state, pts, names, matmul_dtype)
+        if out is None:
+            return got
+        for k, v in got.items():
+            out[k].copy_(v)
+        return out
+    if pts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pts.device}")
+    refusal = _tile_kernel_refusal(state, pts, maps)
+    if refusal is not None:
+        raise ValueError(f"the tile kernel does not take this query on {pts.device}: {refusal}")
+    tracer.count("query_tiles_fused")
+    n, dev = pts.shape[0], pts.device
+    H, W = state.image_hw
+    V = state.num_views
+    if out is None:
+        out = {"dist": torch.empty(n, dtype=torch.float32, device=dev),
+               "valid_mask": torch.empty(n, dtype=torch.bool, device=dev),
+               **{k: torch.empty((n, m.shape[-1]), dtype=torch.float32, device=dev)
+                  for k, m in maps.items()}}
+    full = {k: m for k, m in maps.items() if tuple(m.shape[1:3]) == (H, W)}
+    patch = {k: m for k, m in maps.items() if k not in full}
+    idx = tw = None
+    patch_hw = (0, 0)
+    if patch:
+        idx = torch.empty((V, n, 4), dtype=torch.int32, device=dev)
+        tw = torch.empty((V, n, 4), dtype=torch.float32, device=dev)
+        patch_hw = tuple(next(iter(patch.values())).shape[1:3])
+    with tracer.span("fields.prep"):
+        field_tile(state, pts.contiguous(), out, full, idx, tw, patch_hw)
+    for name, m in patch.items():
+        _, h, w_, C = m.shape
+        with tracer.span("fields.kernel"):
+            fused_weighted_interp(m.reshape(V, h * w_, C).contiguous(), idx, tw, matmul_dtype,
+                                  out=out[name])
+    return out
+
+
+def _eval_field_fused_plain(state, pts: Tensor, names: Tuple[str, ...],
+                            matmul_dtype: str) -> Dict[str, Tensor]:
+    """:func:`eval_field_fused` in plain torch around the descriptor kernel:
+    the distance terms, the taps and the full-resolution maps as in
+    ``eval_field``, each patch-grid map through
+    :func:`fused_weighted_interp`, then normalised."""
     from d3fields_tpu_torch.fields import fusion  # fusion imports this module
 
     xy, outputs, vw, denom, all_invalid = fusion._fused_distance(state, pts)
-    names = tuple(return_names)
     if not names:
         return outputs
     H, W = state.image_hw
