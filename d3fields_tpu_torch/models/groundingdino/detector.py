@@ -26,6 +26,7 @@ from d3fields_tpu_torch.models.groundingdino.model import GroundingDino, gated_c
 from d3fields_tpu_torch.models.resize import bilinear_resize
 from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 CLS_ID, SEP_ID, DOT_ID = 101, 102, 1012
@@ -116,18 +117,23 @@ class GroundingDinoDetector:
         self, images: np.ndarray, classes: Sequence[str],
         box_threshold: float, text_threshold: float = 0.25,
     ) -> List[Detections]:
-        """All V views in ONE forward. images (V, H, W, 3) RGB uint8."""
-        input_ids, spans = tokenize_classes(classes, self.tokenize)
-        V, H, W = images.shape[:3]
-        logits, boxes = self.forward_views(images, input_ids)
-        with torch.no_grad():
-            span_mask = torch.as_tensor(_span_mask(spans, self.cfg.max_text_len),
-                                        device=self.device)
-            reduced = _reduce_detection_outputs(logits, span_mask, text_threshold)
-        scores, span_thr, span_fb = (t.cpu().numpy() for t in reduced)
-        boxes = boxes.cpu().numpy()
-        return [_postprocess_view_reduced(scores[v], span_thr[v], span_fb[v], boxes[v],
-                                          box_threshold, (H, W)) for v in range(V)]
+        """All V views in ONE forward. images (V, H, W, 3) RGB uint8. Traced
+        as ``seg.detect``: the forward's ``seg.detect.text``, ``.backbone``,
+        ``.encoder`` and ``.decoder``, then ``seg.detect.post`` (the
+        reduction on the device and the host's post-processing)."""
+        with tracer.span("seg.detect"):
+            input_ids, spans = tokenize_classes(classes, self.tokenize)
+            V, H, W = images.shape[:3]
+            logits, boxes = self.forward_views(images, input_ids)
+            with tracer.span("seg.detect.post"):
+                with torch.no_grad():
+                    span_mask = torch.as_tensor(_span_mask(spans, self.cfg.max_text_len),
+                                                device=self.device)
+                    reduced = _reduce_detection_outputs(logits, span_mask, text_threshold)
+                scores, span_thr, span_fb = (t.cpu().numpy() for t in reduced)
+                boxes = boxes.cpu().numpy()
+                return [_postprocess_view_reduced(scores[v], span_thr[v], span_fb[v], boxes[v],
+                                                  box_threshold, (H, W)) for v in range(V)]
 
     def forward_views(self, images, input_ids: np.ndarray) -> Tuple[Tensor, Tensor]:
         """uint8 images (V, H, W, 3) and one caption's ids (1, L) -> the

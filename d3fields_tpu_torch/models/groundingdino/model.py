@@ -47,6 +47,7 @@ from d3fields_tpu_torch.models.groundingdino import bert as B
 from d3fields_tpu_torch.models.groundingdino import swin as SW
 from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 Gather = Callable[[Tensor, Sequence[Tuple[int, int]], Tensor, Tensor], Tensor]
@@ -563,10 +564,12 @@ class GroundingDino(nn.Module):
         ids, self_mask, pos_ids = (host_to_device(a, dev)
                                    for a in (ids_np, self_mask_np, pos_np))
         token_mask = torch.ones_like(ids, dtype=torch.bool)
-        text = m.text_backbone(ids, self_mask, torch.zeros_like(ids), pos_ids)
-        text = m.text_projection(text)
+        with tracer.span("seg.detect.text"):
+            text = m.text_backbone(ids, self_mask, torch.zeros_like(ids), pos_ids)
+            text = m.text_projection(text)
 
-        maps = self._vision_maps(pixels)
+        with tracer.span("seg.detect.backbone"):
+            maps = self._vision_maps(pixels)
         spatial_shapes = tuple((int(x.shape[1]), int(x.shape[2])) for x in maps)
         vision = torch.cat([x.reshape(x.shape[0], -1, cfg.d_model) for x in maps], 1)
         consts = _level_constants(spatial_shapes, cfg.d_model, cfg.pe_temperature, dev)
@@ -587,41 +590,43 @@ class GroundingDino(nn.Module):
         text_pos = get_sine_pos_embed(text_position_ids[..., None].float(), cfg.d_model,
                                       exchange_xy=False).to(dt)
         text_self_bias = torch.where(text_self_mask[:, None], 0.0, -1e30)
-        vision, text, pos = vision.to(dt), text.to(dt), pos.to(dt)
-        for layer in m.encoder.layers:
-            vision, text = layer(vision, text, pos, ref, spatial_shapes, text_self_bias,
-                                 text_pad_mask, text_pos, gather)
-        vision, text = vision.float(), text.float()
+        with tracer.span("seg.detect.encoder"):
+            vision, text, pos = vision.to(dt), text.to(dt), pos.to(dt)
+            for layer in m.encoder.layers:
+                vision, text = layer(vision, text, pos, ref, spatial_shapes, text_self_bias,
+                                     text_pad_mask, text_pos, gather)
+            vision, text = vision.float(), text.float()
 
-        # language-guided query selection (two-stage)
-        proposals, valid = consts["proposals"], consts["valid"]
-        obj_query = torch.where(valid[None, :, None], vision, 0.0)
-        obj_query = m.enc_output_norm(m.enc_output(obj_query))
-        enc_logits = contrastive_logits(obj_query, text, text_token_mask, cfg.max_text_len)
-        coord_logits = m.encoder_output_bbox_embed(obj_query) + proposals[None]
-        topk_idx = torch.topk(enc_logits.amax(-1), cfg.num_queries, dim=1).indices
-        reference = torch.sigmoid(torch.gather(
-            coord_logits, 1, topk_idx[..., None].expand(-1, -1, 4)))  # (B, Q, 4)
+        with tracer.span("seg.detect.decoder"):
+            # language-guided query selection (two-stage)
+            proposals, valid = consts["proposals"], consts["valid"]
+            obj_query = torch.where(valid[None, :, None], vision, 0.0)
+            obj_query = m.enc_output_norm(m.enc_output(obj_query))
+            enc_logits = contrastive_logits(obj_query, text, text_token_mask, cfg.max_text_len)
+            coord_logits = m.encoder_output_bbox_embed(obj_query) + proposals[None]
+            topk_idx = torch.topk(enc_logits.amax(-1), cfg.num_queries, dim=1).indices
+            reference = torch.sigmoid(torch.gather(
+                coord_logits, 1, topk_idx[..., None].expand(-1, -1, 4)))  # (B, Q, 4)
 
-        # decoder with iterative box refinement
-        text_bias = torch.where(text_pad_mask[:, None, None, :], -1e30, 0.0)
-        hidden = m.query_position_embeddings.weight[None].expand(Bn, -1, -1)
-        head = self.bbox_embed[0]
-        dec = m.decoder
-        for layer in dec.layers:
-            ref_input = reference[:, :, None, :].expand(-1, -1, L, 4)
-            qpos = dec.reference_points_head(get_sine_pos_embed(reference, cfg.d_model // 2))
-            hidden = layer(hidden, qpos, ref_input, vision, text, spatial_shapes, text_bias,
-                           gather)
-            # the in-loop refinement uses the un-normed hidden (HF decoder)
-            ref_into_last = reference
-            reference = torch.sigmoid(head(hidden) + _inverse_sigmoid(reference))
-        final_hidden = dec.layer_norm(hidden)
-        logits = contrastive_logits(final_hidden, text, text_token_mask, cfg.max_text_len)
-        # final boxes: the head on the layer-normed hidden against the
-        # reference points that entered the last layer
-        boxes = torch.sigmoid(head(final_hidden) + _inverse_sigmoid(ref_into_last))
-        return logits, boxes
+            # decoder with iterative box refinement
+            text_bias = torch.where(text_pad_mask[:, None, None, :], -1e30, 0.0)
+            hidden = m.query_position_embeddings.weight[None].expand(Bn, -1, -1)
+            head = self.bbox_embed[0]
+            dec = m.decoder
+            for layer in dec.layers:
+                ref_input = reference[:, :, None, :].expand(-1, -1, L, 4)
+                qpos = dec.reference_points_head(get_sine_pos_embed(reference, cfg.d_model // 2))
+                hidden = layer(hidden, qpos, ref_input, vision, text, spatial_shapes, text_bias,
+                               gather)
+                # the in-loop refinement uses the un-normed hidden (HF decoder)
+                ref_into_last = reference
+                reference = torch.sigmoid(head(hidden) + _inverse_sigmoid(reference))
+            final_hidden = dec.layer_norm(hidden)
+            logits = contrastive_logits(final_hidden, text, text_token_mask, cfg.max_text_len)
+            # final boxes: the head on the layer-normed hidden against the
+            # reference points that entered the last layer
+            boxes = torch.sigmoid(head(final_hidden) + _inverse_sigmoid(ref_into_last))
+            return logits, boxes
 
 
 # the parameters of the gated trunk (JAX ``model.py:612-626, 742-790``)

@@ -29,6 +29,7 @@ from d3fields_tpu_torch.models.common import host_to_device, torch_dtype
 from d3fields_tpu_torch.models.sam.model import Sam, trunk_copy
 from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -113,7 +114,7 @@ class SamPredictor:
         self._orig_hw = (H, W)
         self._resized_hw = self._target_hw(H, W)
         embs = []
-        with torch.no_grad():
+        with tracer.span("seg.sam.encode"), torch.no_grad():
             for g in groups:
                 x = self.prep(g)
                 embs.append(self._views.replicas[x.device].encode(x))
@@ -145,12 +146,14 @@ class SamPredictor:
             raise ValueError(f"{len(boxes_per_view)} box lists for {V} encoded views")
         boxes = [np.asarray(b, np.float32).reshape(-1, 4) for b in boxes_per_view]
         counts = [b.shape[0] for b in boxes]
-        parts, start = [], 0
-        for e in self._image_embs:
-            parts.append(self._decode_views(self._views.replicas[e.device], e,
-                                            boxes[start:start + e.shape[0]]))
-            start += e.shape[0]
-        masks, iou = self._views.gather(parts)
+        with tracer.span("seg.sam.decode"):
+            tracer.count("seg_boxes", sum(counts))
+            parts, start = [], 0
+            for e in self._image_embs:
+                parts.append(self._decode_views(self._views.replicas[e.device], e,
+                                                boxes[start:start + e.shape[0]]))
+                start += e.shape[0]
+            masks, iou = self._views.gather(parts)
         return list(zip(masks.split(counts), iou.split(counts)))
 
     def _decode_views(self, model: Sam, embs: Tensor, boxes: List[np.ndarray]):

@@ -19,6 +19,8 @@ from d3fields_tpu_torch.models.groundingdino.detector import Detections, Groundi
 from d3fields_tpu_torch.models.sam.predictor import SamPredictor
 from d3fields_tpu_torch.seg.backends import with_background
 from d3fields_tpu_torch.seg.instances import ViewMasks
+from d3fields_tpu_torch.utils.profiling import tracer
+from d3fields_tpu_torch.utils.profiling import tracer
 
 TEXT_THRESHOLD = 0.25  # reference utils/grounded_sam.py:414
 
@@ -51,13 +53,17 @@ class GroundedSAMBackend:
                       thresholds: Sequence[float]) -> List[ViewMasks]:
         """images (V, H, W, 3) RGB uint8 -> one ViewMasks per view: one
         GroundingDINO forward over all views, one SAM encode of the rig and
-        one SAM decode of every view's boxes."""
-        dets = self.detector.predict_with_classes_batch(
-            images, list(queries), box_threshold=float(thresholds[0]),
-            text_threshold=TEXT_THRESHOLD)
-        H, W = images.shape[1:3]
-        if all(det.xyxy.shape[0] == 0 for det in dets):
-            return [_background_only(H, W) for _ in dets]
-        per_view = self.sam.set_images(images).predict_boxes_views([d.xyxy for d in dets])
-        return [_view_masks(det, m, i, queries) if det.xyxy.shape[0] else _background_only(H, W)
-                for det, (m, i) in zip(dets, per_view)]
+        one SAM decode of every view's boxes. Traced as ``seg.segment_views``,
+        with ``seg.detect``, ``seg.sam.encode``, ``seg.sam.decode`` and
+        ``seg.masks`` (the masks to the host, the background) inside."""
+        with tracer.span("seg.segment_views", memory=True):
+            dets = self.detector.predict_with_classes_batch(
+                images, list(queries), box_threshold=float(thresholds[0]),
+                text_threshold=TEXT_THRESHOLD)
+            H, W = images.shape[1:3]
+            if all(det.xyxy.shape[0] == 0 for det in dets):
+                return [_background_only(H, W) for _ in dets]
+            per_view = self.sam.set_images(images).predict_boxes_views([d.xyxy for d in dets])
+            with tracer.span("seg.masks"):
+                return [_view_masks(det, m, i, queries) if det.xyxy.shape[0]
+                        else _background_only(H, W) for det, (m, i) in zip(dets, per_view)]
