@@ -153,6 +153,7 @@ import torch.nn.functional as F
 # H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 N_POINTS = 1 << 20
 TILE = 131072
@@ -234,13 +235,14 @@ def compare(out, ref):
     return err, ok
 
 
-def kernel_time(kernel: str, shape: str, fns: dict, moved: int, flops: int, **extra) -> dict:
+def kernel_time(kernel: str, shape: str, fns: dict, moved: int, flops: int,
+                peak_flops: float = PEAK_F32_FLOPS, **extra) -> dict:
     """Times each callable of ``fns`` (a None stays None), emits one
     ``kernel_time`` line with the bound of the work, and returns its times
     and bound. The bound counts ``moved`` bytes at the HBM rate and
-    ``flops`` at the float32 peak."""
+    ``flops`` at ``peak_flops`` (the float32 peak unless given)."""
     times = {k: (cuda_ms(f) if f is not None else None) for k, f in fns.items()}
-    bytes_ms, ops_ms = moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = moved / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     row = {**times, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     emit({"phase": "kernel_time", "kernel": kernel, "shape": shape, **row, "bytes": moved,
@@ -681,6 +683,120 @@ def check_deform_gather(dev):
                            **bf16_times}}
 
 
+# SAM vision-attention shapes: B (views or windows), heads, grid, head width
+SAM_ATTN_SHAPES = {
+    "global": (4, 16, (64, 64), 80),   # ViT-H's global layers on 4 views
+    "window": (100, 16, (14, 14), 80),  # its windowed layers: 4 x 25 windows of 14x14
+    "vitb_global": (1, 12, (64, 64), 64),
+    "tiny_window": (3, 2, (14, 14), 16),
+    "small_grid": (2, 3, (8, 8), 16),    # one key tile, the staged tables
+    "ragged": (2, 4, (10, 13), 64),      # L = 130: a ragged last tile of rows and keys
+}
+SAM_ATTN_F32_RTOL = 1e-5  # only the summation order and the exponential differ
+SAM_ATTN_BF16_MIN_COS = 0.995  # the JAX bf16 budget (tests/test_sam.py:212)
+
+
+def sam_attn_inputs(dev, B, nh, hw, hd, dtype, seed):
+    """qkv (B, L, 3, nh, hd) as the projection writes it, and the two
+    relative tables; N(0, 1) and N(0, 0.1^2), made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, w = hw
+    qkv = torch.randn((B, h * w, 3 * nh * hd), generator=gen, device=dev)
+    rel_h = torch.randn((2 * h - 1, hd), generator=gen, device=dev) * 0.1
+    rel_w = torch.randn((2 * w - 1, hd), generator=gen, device=dev) * 0.1
+    return (qkv.reshape(B, h * w, 3, nh, hd).to(dtype), rel_h.to(dtype), rel_w.to(dtype))
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_sam_attention(dev):
+    """SAM's vision-attention kernel (``csrc/sam_attention.cu``), both
+    routes, against the plain chain on the card at every
+    :data:`SAM_ATTN_SHAPES` entry: f32 at SAM_ATTN_F32_RTOL; bf16 per row
+    within the JAX bf16 budget of the plain bf16 chain, and at least as
+    close as that chain to the f32 chain on the same (bf16) inputs. Timed
+    at the ViT-H global and window shapes beside the plain chain and
+    ``F.scaled_dot_product_attention`` given the materialised bias (its
+    time leaves the bias's making out)."""
+    from d3fields_tpu_torch.models.sam import attention as sa
+
+    rows = {}
+    for i, (label, (B, nh, hw, hd)) in enumerate(SAM_ATTN_SHAPES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            qkv, rel_h, rel_w = sam_attn_inputs(dev, B, nh, hw, hd, dtype, seed=40 + i)
+            before = sa.sam_attention.launches_bf16
+            with torch.no_grad():
+                got = sa.sam_attention(qkv, rel_h, rel_w, hw)
+                torch.cuda.synchronize()
+                want = sa.sam_attention_plain(qkv, rel_h, rel_w, hw)
+                line = {"phase": "kernel_check", "kernel": "sam_attention",
+                        "shape": f"{label}_{name}", "B": B, "nh": nh, "hw": list(hw), "hd": hd,
+                        "max_abs_err": float((got.float() - want.float()).abs().max()),
+                        "rel_l2_err": rel_l2(got, want)}
+                if dtype == torch.float32:
+                    ok = bool(torch.allclose(got, want, rtol=SAM_ATTN_F32_RTOL,
+                                             atol=SAM_ATTN_F32_RTOL * float(want.abs().max())))
+                    line.update(rtol=SAM_ATTN_F32_RTOL, ok=ok)
+                else:
+                    exact = sa.sam_attention_plain(qkv.float(), rel_h.float(), rel_w.float(), hw)
+                    cos = F.cosine_similarity(got.float(), want.float(), dim=-1).min()
+                    kernel_err, chain_err = rel_l2(got, exact), rel_l2(want, exact)
+                    ok = bool(cos > SAM_ATTN_BF16_MIN_COS and kernel_err <= chain_err
+                              and sa.sam_attention.launches_bf16 == before + 1)
+                    line.update(min_row_cos=float(cos), min_cos=SAM_ATTN_BF16_MIN_COS,
+                                rel_l2_err_vs_f32=kernel_err, chain_rel_l2_err_vs_f32=chain_err,
+                                ok=ok)
+                    del exact
+            emit(line)
+            check(ok, f"sam_attention disagrees with the plain chain at {label}_{name}: {line}")
+            if label in ("global", "window"):
+                rows[f"{label}_{name}"] = time_sam_attention(f"{label}_{name}", qkv, rel_h, rel_w,
+                                                             hw)
+            del qkv, got, want
+            torch.cuda.empty_cache()
+    return {"name": "sam_attention", "route": "cuda",
+            "source": "d3fields_tpu_torch/csrc/sam_attention.cu",
+            "replaces": "none (d3fields_tpu/models/sam/model.py:135 _vision_attention, XLA-fused)",
+            "max_abs_err": None, **rows["global_bf16"], "shapes": rows}
+
+
+def time_sam_attention(shape: str, qkv, rel_h, rel_w, hw) -> dict:
+    """The wrapper (its bias GEMM and the kernel), the kernel's launch alone,
+    the plain chain and the library's fused attention given the
+    materialised bias (and, beside it, without any bias), at one shape; the
+    bound counts q . k and p v at the route's peak and q, k, v, the bias
+    terms and the output moved once."""
+    from d3fields_tpu_torch.models.sam import attention as sa
+
+    B, L, _, nh, hd = qkv.shape
+    h, w = hw
+    size = qkv.element_size()
+    rows = sa.bias_rows(qkv[:, :, 0], rel_h, rel_w)
+    out = torch.empty((B, L, nh * hd), dtype=qkv.dtype, device=qkv.device)
+    moved = size * (4 * B * L * nh * hd) + rows.numel() * size
+    flops = 4 * B * nh * L * L * hd
+    peak = PEAK_BF16_FLOPS if qkv.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    heads = qkv.permute(2, 0, 3, 1, 4)  # (3, B, nh, L, hd)
+    q, k, v = heads[0], heads[1], heads[2]
+    bias = sa.rel_pos_bias(hw, rel_h, rel_w, q.reshape(B * nh, L, hd)).reshape(B, nh, L, L)
+    with torch.no_grad():
+        row = kernel_time(
+            "sam_attention", shape,
+            {"ms": lambda: sa.sam_attention(qkv, rel_h, rel_w, hw),
+             "launch_ms": lambda: sa.launch(qkv, rows, out, hw),
+             "plain_ms": lambda: sa.sam_attention_plain(qkv, rel_h, rel_w, hw),
+             "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+             "library_no_bias_ms": lambda: F.scaled_dot_product_attention(q, k, v)},
+            moved, flops, peak_flops=peak, dtype=str(qkv.dtype).replace("torch.", ""),
+            wrapper="ms: the bias GEMM and the kernel; launch_ms: the kernel alone",
+            library="F.scaled_dot_product_attention given the (B, nh, L, L) bias")
+    row["launch_peak_share"] = row["bound_ms"] / row["launch_ms"]
+    return row
+
+
 def capture_gather_inputs(detector, images) -> dict:
     """The gather inputs of the first encoder and the first decoder layer of
     the detector's forward on ``images`` (the forward a segment_views
@@ -706,9 +822,10 @@ def capture_gather_inputs(detector, images) -> dict:
 def kernel_wrappers():
     from d3fields_tpu_torch.fields.kernels import field_tile, fused_weighted_interp
     from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
+    from d3fields_tpu_torch.models.sam.attention import sam_attention
 
     return {"fused_weighted_interp": fused_weighted_interp, "field_tile": field_tile,
-            "deform_gather": deform_gather}
+            "deform_gather": deform_gather, "sam_attention": sam_attention}
 
 
 def reset_launch_counts() -> None:
@@ -3117,7 +3234,11 @@ def click_track(dev) -> dict:
         for path in ckpt.values():
             os.remove(path)
     check(code == 0, "click_track exited with an error")
-    check(sum(counts.values()) == 0, f"click_track launched {counts}")
+    # SAM's encoder: one attention launch a vision layer, f32 route
+    encodes = len(times["set_image"])
+    check(counts["sam_attention"] == 32 * encodes and counts["sam_attention_bf16"] == 0
+          and sum(counts.values()) == counts["sam_attention"],
+          f"click_track launched {counts} over {encodes} encodes")
     log = stdout.getvalue().splitlines()
     fps = [float(ln.split()[-1]) for ln in log if "FPS:" in ln]
     check(len(fps) == 1, f"click_track printed no FPS: {log}")
@@ -4001,7 +4122,8 @@ def main() -> int:
         now = time.perf_counter()
         wall[name], t_lap[0] = now - t_lap[0], now
 
-    rows = [check_fused_weighted_interp(dev), check_field_tile(dev), check_deform_gather(dev)]
+    rows = [check_fused_weighted_interp(dev), check_field_tile(dev), check_deform_gather(dev),
+            check_sam_attention(dev)]
     lap("kernel_check")
     by_path = {}
     by_path["serve"], backbone, f32_update_ms = serve(dev)

@@ -22,10 +22,10 @@ from typing import Dict, Iterable
 from d3fields_tpu_torch.native_build import lib_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("fused_interp", "field_tile", "deform_gather")
+SOURCES = ("fused_interp", "field_tile", "deform_gather", "sam_attention")
 # the sources one load builds together, each wave one set of parallel
-# nvcc: the field query's two kernels, then segmentation's
-WAVES = (("fused_interp", "field_tile"), ("deform_gather",))
+# nvcc: the field query's two kernels, then segmentation's two
+WAVES = (("fused_interp", "field_tile"), ("deform_gather", "sam_attention"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

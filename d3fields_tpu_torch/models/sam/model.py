@@ -22,6 +22,9 @@ weights as the JAX package's ``random_params_direct`` does.
   ``compute_dtype`` (:func:`trunk_copy`, JAX ``model.py:172-225``), with
   the LayerNorm statistics and the attention softmax in f32. The neck, the
   prompt encoder and the mask decoder are always f32.
+- The vision attention's core is :func:`attention.sam_attention`: on the
+  card one launch of ``csrc/sam_attention.cu`` a layer, on the CPU the
+  plain chain.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from d3fields_tpu_torch.models.common import cast_copy, embedding, linear, named
+from d3fields_tpu_torch.models.sam.attention import sam_attention
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -111,19 +115,6 @@ def config_for_encoder_width(hidden: int) -> SamConfig:
 # vision encoder
 # ---------------------------------------------------------------------------
 
-def _rel_pos_bias(q_hw: Tuple[int, int], rel_h: Tensor, rel_w: Tensor, query: Tensor) -> Tensor:
-    """Decomposed relative position bias (HF ``get_decomposed_rel_pos``
-    with equal query and key sizes). query (B, h*w, hd) unscaled."""
-    qh, qw = q_hw
-    dev = query.device
-    idx_h = torch.arange(qh, device=dev)[:, None] - torch.arange(qh, device=dev)[None] + qh - 1
-    idx_w = torch.arange(qw, device=dev)[:, None] - torch.arange(qw, device=dev)[None] + qw - 1
-    q = query.reshape(query.shape[0], qh, qw, -1)
-    bias_h = torch.einsum("bhwc,hkc->bhwk", q, rel_h[idx_h])
-    bias_w = torch.einsum("bhwc,wkc->bhwk", q, rel_w[idx_w])
-    return (bias_h[..., :, None] + bias_w[..., None, :]).reshape(-1, qh * qw, qh * qw)
-
-
 class _VisionAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, rel_size: int, device):
         super().__init__()
@@ -138,15 +129,8 @@ class _VisionAttention(nn.Module):
         """x (B, h, w, C): one window or the whole map per batch entry."""
         B, h, w, C = x.shape
         nh = self.num_heads
-        hd = C // nh
-        qkv = self.qkv(x.reshape(B, h * w, C)).reshape(B, h * w, 3, nh, hd)
-        qkv = qkv.permute(2, 0, 3, 1, 4).reshape(3, B * nh, h * w, hd)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        logits = torch.matmul(q * (hd ** -0.5), k.transpose(-1, -2))
-        # in place: a global layer's (B*nh, 4096, 4096) logits are 1 GB a view
-        logits.add_(_rel_pos_bias((h, w), self.rel_pos_h, self.rel_pos_w, q))
-        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        out = torch.matmul(probs, v).reshape(B, nh, h, w, hd).permute(0, 2, 3, 1, 4)
+        qkv = self.qkv(x.reshape(B, h * w, C)).reshape(B, h * w, 3, nh, C // nh)
+        out = sam_attention(qkv, self.rel_pos_h, self.rel_pos_w, (h, w))
         return self.proj(out.reshape(B, h, w, C))
 
 

@@ -256,7 +256,7 @@ def test_load_builds_the_query_kernels_in_one_wave(monkeypatch):
     _build.load("fused_interp")
     _build.load("deform_gather")
     assert built == [("fused_interp", "field_tile"), ("fused_interp", "field_tile"),
-                     ("deform_gather",)]
+                     ("deform_gather", "sam_attention")]
     assert {w for wave in _build.WAVES for w in wave} == set(_build.SOURCES)
 
 
