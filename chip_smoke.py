@@ -275,16 +275,17 @@ def fused_route(feats, idx, w, cs: int):
     (``cs`` channels per slice, 0 for the direct gather; the bf16-table
     entry for a bf16 ``feats``), to hold and time the routes against each
     other on the same inputs. Counts no launch."""
+    from d3fields_tpu_torch import _build
     from d3fields_tpu_torch.fields import kernels
 
     V, P, C = feats.shape
     N = idx.shape[1]
     out = torch.empty((N, C), dtype=torch.float32, device=feats.device)
-    entry = kernels._kernel_bf16() if feats.dtype == torch.bfloat16 else kernels._kernel()
-    err = entry(feats.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                V, P, N, C, cs, torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"fused_weighted_interp ({feats.dtype}) with {cs}-channel slices: "
-                    f"CUDA error {err}")
+    lib = _build.load("fused_interp", kernels.declare_fused_interp)
+    entry = (lib.d3f_fused_weighted_interp_bf16 if feats.dtype == torch.bfloat16
+             else lib.d3f_fused_weighted_interp)
+    _build.launch("fused_weighted_interp", feats.device, entry, feats.data_ptr(),
+                  idx.data_ptr(), w.data_ptr(), out.data_ptr(), V, P, N, C, cs)
     return out
 
 
@@ -769,6 +770,7 @@ def time_sam_attention(shape: str, qkv, rel_h, rel_w, hw) -> dict:
     materialised bias (and, beside it, without any bias), at one shape; the
     bound counts q . k and p v at the route's peak and q, k, v, the bias
     terms and the output moved once."""
+    from d3fields_tpu_torch import _build
     from d3fields_tpu_torch.models.sam import attention as sa
 
     B, L, _, nh, hd = qkv.shape
@@ -776,6 +778,12 @@ def time_sam_attention(shape: str, qkv, rel_h, rel_w, hw) -> dict:
     size = qkv.element_size()
     rows = sa.bias_rows(qkv[:, :, 0], rel_h, rel_w)
     out = torch.empty((B, L, nh * hd), dtype=qkv.dtype, device=qkv.device)
+    # launch_ms: the kernel's C entry alone, uncounted
+    lib = _build.load("sam_attention", sa.declare)
+    entry = lib.d3f_sam_attention_bf16 if qkv.dtype == torch.bfloat16 else lib.d3f_sam_attention_f32
+    q0, k0, v0 = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    args = (q0.data_ptr(), k0.data_ptr(), v0.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            B, L, nh, h, w, hd, q0.stride(0), q0.stride(1), q0.stride(2), hd ** -0.5)
     moved = size * (4 * B * L * nh * hd) + rows.numel() * size
     flops = 4 * B * nh * L * L * hd
     peak = PEAK_BF16_FLOPS if qkv.dtype == torch.bfloat16 else PEAK_F32_FLOPS
@@ -786,7 +794,7 @@ def time_sam_attention(shape: str, qkv, rel_h, rel_w, hw) -> dict:
         row = kernel_time(
             "sam_attention", shape,
             {"ms": lambda: sa.sam_attention(qkv, rel_h, rel_w, hw),
-             "launch_ms": lambda: sa.launch(qkv, rows, out, hw),
+             "launch_ms": lambda: _build.launch("sam_attention", qkv.device, entry, *args),
              "plain_ms": lambda: sa.sam_attention_plain(qkv, rel_h, rel_w, hw),
              "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
              "library_no_bias_ms": lambda: F.scaled_dot_product_attention(q, k, v)},

@@ -56,27 +56,18 @@ TILE_MAX_VIEWS = 8
 TILE_MAX_MAPS = 4
 
 
-def _entry(symbol: str):
-    fn = getattr(_build.load("fused_interp"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def declare_fused_interp(lib: ctypes.CDLL) -> None:
+    """The C entries of ``csrc/fused_interp.cu`` (``_build.load``)."""
+    for fn in (lib.d3f_fused_weighted_interp, lib.d3f_fused_weighted_interp_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
-def _kernel():
-    return _entry("d3f_fused_weighted_interp")
-
-
-def _kernel_bf16():
-    return _entry("d3f_fused_weighted_interp_bf16")
-
-
-def _tile_kernel():
-    fn = _build.load("field_tile").d3f_field_tile
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
-                   + [ctypes.c_double, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def declare_field_tile(lib: ctypes.CDLL) -> None:
+    """The C entry of ``csrc/field_tile.cu`` (``_build.load``)."""
+    lib.d3f_field_tile.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
+                                   + [ctypes.c_double, ctypes.c_void_p])
+    lib.d3f_field_tile.restype = ctypes.c_int
 
 
 def _matmul_dtype(matmul_dtype: str) -> torch.dtype:
@@ -194,13 +185,10 @@ def fused_weighted_interp(feats: Tensor, idx: Tensor, w: Tensor,
     # the shared-memory route copies the table 16 bytes at a time
     cs = slice_channels(V, P, C, dt) if feats.data_ptr() % 16 == 0 else 0
     bf16 = dt == torch.bfloat16
-    with torch.cuda.device(feats.device):
-        err = (_kernel_bf16() if bf16 else _kernel())(
-            feats.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            V, P, N, C, cs, torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"fused_weighted_interp launch failed: CUDA error {err}")
+    lib = _build.load("fused_interp", declare_fused_interp)
+    _build.launch("fused_weighted_interp", feats.device,
+                  lib.d3f_fused_weighted_interp_bf16 if bf16 else lib.d3f_fused_weighted_interp,
+                  feats.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), V, P, N, C, cs)
     fused_weighted_interp.launches += 1
     if bf16:
         fused_weighted_interp.launches_bf16 += 1
@@ -280,15 +268,11 @@ def field_tile(state, pts: Tensor, out: Dict[str, Tensor], full_maps: Dict[str, 
     outs_p = (ctypes.c_void_p * TILE_MAX_MAPS)(*[out[k].data_ptr() for k in names])
     chans = (ctypes.c_int64 * TILE_MAX_MAPS)(*[m.shape[-1] for m in maps])
     taps_p = [t.data_ptr() for t in taps] or [None, None]
-    with torch.cuda.device(pts.device):
-        err = _tile_kernel()(
-            pts.data_ptr(), *[g.data_ptr() for g in geom], out["dist"].data_ptr(),
-            out["valid_mask"].data_ptr(), *taps_p,
-            maps_p, outs_p, chans, len(names), V, H, W, *patch_hw, n, state.mu,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"field_tile launch failed: CUDA error {err}")
+    _build.launch("field_tile", pts.device,
+                  _build.load("field_tile", declare_field_tile).d3f_field_tile,
+                  pts.data_ptr(), *[g.data_ptr() for g in geom], out["dist"].data_ptr(),
+                  out["valid_mask"].data_ptr(), *taps_p,
+                  maps_p, outs_p, chans, len(names), V, H, W, *patch_hw, n, state.mu)
     field_tile.launches += 1
 
 

@@ -37,18 +37,12 @@ from d3fields_tpu_torch.utils.profiling import tracer
 Tensor = torch.Tensor
 
 
-def _kernel():
-    fn = _build.load("deform_gather").d3f_deform_gather
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _kernel_bf16():
-    fn = _build.load("deform_gather").d3f_deform_gather_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def declare(lib: ctypes.CDLL) -> None:
+    """The C entries of ``csrc/deform_gather.cu`` (``_build.load``); the
+    bf16-table route takes its load width after the shapes."""
+    for fn, ints in ((lib.d3f_deform_gather, 7), (lib.d3f_deform_gather_bf16, 8)):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def bf16_width(hd: int) -> int:
@@ -163,13 +157,10 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
             raise ValueError(f"the bf16-table route loads {width} bf16 at once at hd={hd}: "
                              f"value must be {2 * width}-byte aligned, its address is "
                              f"{value.data_ptr():#x}")
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (value.data_ptr(), levels.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-                out.data_ptr(), B, S, Q, nh, hd, L, P)
-        err = _kernel_bf16()(*args, width, stream) if bf16 else _kernel()(*args, stream)
-    if err:
-        raise RuntimeError(f"deform_gather launch failed: CUDA error {err}")
+    lib = _build.load("deform_gather", declare)
+    entry, extra = (lib.d3f_deform_gather_bf16, (width,)) if bf16 else (lib.d3f_deform_gather, ())
+    _build.launch("deform_gather", value.device, entry, value.data_ptr(), levels.data_ptr(),
+                  loc.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, Q, nh, hd, L, P, *extra)
     deform_gather.launches += 1
     if bf16:
         deform_gather.launches_bf16 += 1

@@ -34,11 +34,14 @@ KERNEL_MAX_TABLE = 256  # h + w: a block's rows of both bias terms in shared mem
 _ROUTES = {torch.bfloat16: "d3f_sam_attention_bf16", torch.float32: "d3f_sam_attention_f32"}
 
 
-def _kernel(dtype: torch.dtype):
-    fn = getattr(_build.load("sam_attention"), _ROUTES[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def declare(lib: ctypes.CDLL) -> None:
+    """The C entries of ``csrc/sam_attention.cu`` (``_build.load``), one a
+    route."""
+    for symbol in _ROUTES.values():
+        fn = getattr(lib, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
 
 def _offsets(n: int, device) -> Tensor:
@@ -162,27 +165,16 @@ def sam_attention(qkv: Tensor, rel_h: Tensor, rel_w: Tensor, hw: Tuple[int, int]
     out = torch.empty((B, L, nh * hd), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    launch(qkv, rows, out, hw)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    _build.launch("sam_attention", qkv.device,
+                  getattr(_build.load("sam_attention", declare), _ROUTES[qkv.dtype]),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                  B, L, nh, h, w, hd, q.stride(0), q.stride(1), q.stride(2), hd ** -0.5)
     sam_attention.launches += 1
     if qkv.dtype == torch.bfloat16:
         sam_attention.launches_bf16 += 1
     tracer.count("sam_attn")
     return out
-
-
-def launch(qkv: Tensor, rows: Tensor, out: Tensor, hw: Tuple[int, int]) -> None:
-    """One launch of the kernel on qkv's device and current stream: out
-    (B, L, nh*hd) from qkv and the bias terms ``rows`` of
-    :func:`bias_rows`, all checked by :func:`sam_attention`."""
-    B, L, _, nh, hd = qkv.shape
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(qkv.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rows.data_ptr(), out.data_ptr(), B, L, nh,
-            hw[0], hw[1], hd, q.stride(0), q.stride(1), q.stride(2), hd ** -0.5, stream)
-    if err:
-        raise RuntimeError(f"sam_attention launch failed: CUDA error {err}")
 
 
 sam_attention.launches = 0

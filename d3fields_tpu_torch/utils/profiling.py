@@ -120,14 +120,18 @@ class _Span:
     def __enter__(self):
         tr = self.tracer
         self.alloc0 = _allocator_counts() if self.memory and tr._cuda else None
-        self.range = None
-        if torch._C._autograd._profiler_enabled():
-            # record_function's path through the dispatcher costs tens of
-            # microseconds a span under the profiler; this one a few
-            self.range = torch._C._profiler._RecordFunctionFast("d3f." + self.name)
-            self.range.__enter__()
         self.stack = tr._stack()
         parent = self.stack[-1] if self.stack else None  # (id, record)
+        # record_function's path through the dispatcher costs tens of
+        # microseconds a span under the profiler; this one a few
+        self.range = (torch._C._profiler._RecordFunctionFast("d3f." + self.name)
+                      if torch._C._autograd._profiler_enabled() else None)
+        # the range opens right before the clock read, as it closes right
+        # after the next one: none of the tracer's bookkeeping (a thread's
+        # first span makes its stack) lies between them, so that the range's
+        # duration and the span's agree
+        if self.range is not None:
+            self.range.__enter__()
         rec = [self.name, time.perf_counter_ns(), None,
                -1 if parent is None else parent[0], 0, threading.get_ident()]
         with tr._lock:

@@ -11,12 +11,13 @@ imports no JAX, so that the card tests run on a machine without it:
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from d3fields_tpu_torch import _build
+from d3fields_tpu_torch import _build, native_build
 from d3fields_tpu_torch.fields import fusion, kernels
 from d3fields_tpu_torch.fields.state import state_from_obs
 from d3fields_tpu_torch.utils import synthetic as tsyn
@@ -249,15 +250,17 @@ def test_field_tile_rejects_what_the_kernel_does_not_take():
 
 def test_load_builds_the_query_kernels_in_one_wave(monkeypatch):
     built = []
-    monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(_build, "build_all", lambda names: built.append(tuple(names)))
+    monkeypatch.setattr(native_build, "_libs", {})
+    monkeypatch.setattr(native_build, "build", lambda srcs, flags: built.append(
+        tuple(os.path.basename(s)[:-len(".cu")] for s in srcs)))
     monkeypatch.setattr(ctypes, "CDLL", lambda path: path)
-    _build.load("field_tile")
-    _build.load("fused_interp")
-    _build.load("deform_gather")
+    for name in ("field_tile", "fused_interp", "deform_gather"):
+        _build.load(name, lambda lib: None)
     assert built == [("fused_interp", "field_tile"), ("fused_interp", "field_tile"),
                      ("deform_gather", "sam_attention")]
-    assert {w for wave in _build.WAVES for w in wave} == set(_build.SOURCES)
+    # every CUDA source is in one wave
+    assert sorted(_build.SOURCES) == sorted(
+        f[:-len(".cu")] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,7 @@ def _is_reference(module: str) -> bool:
 
 
 def _port_files():
-    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_ab.py",
-                                             "bf16_fault_readings.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "bf16_fault_readings.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

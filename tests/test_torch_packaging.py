@@ -12,6 +12,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import types
 import zipfile
 
 import pytest
@@ -49,6 +50,8 @@ def test_find_source_falls_back_to_the_packaged_copy(tmp_path, monkeypatch):
 
 def test_lib_dir_checkout_stays_under_build():
     assert native_build.lib_dir("native") == os.path.join(REPO, "build", "native")
+    assert os.path.dirname(native_build.lib_path("png", native_build.PORT_NATIVE_DIR)) == \
+        os.path.join(REPO, "build", "native")
     assert os.path.dirname(_build.lib_path("fused_interp")) == os.path.join(
         REPO, "build", "torch_kernels")
 
@@ -95,6 +98,26 @@ def test_load_native_builds_a_packaged_source_into_the_cache(tmp_path, monkeypat
     built = os.listdir(tmp_path / "cache" / "native")
     assert len(built) == 1 and built[0].startswith("libd3f_probe-") and built[0].endswith(".so")
     assert not (tmp_path / "site").exists()
+
+
+@pytest.mark.parametrize("suffix", [".cu", ".cpp"])
+def test_repeated_loads_declare_a_library_once(suffix, monkeypatch):
+    """A CUDA kernel's and a host source's library alike: the first load
+    builds it (stubbed here) and applies its declare; later loads return
+    the same handle and declare nothing again."""
+    built, declared = [], []
+    monkeypatch.setattr(native_build, "_libs", {})
+    monkeypatch.setattr(native_build, "build", lambda srcs, flags: built.append(tuple(srcs)))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: types.SimpleNamespace(path=path))
+    if suffix == ".cu":
+        libs = [_build.load("sam_attention", declared.append) for _ in range(3)]
+        want = _build.lib_path("sam_attention")
+    else:
+        libs = [native_build.load_native("png", declared.append, native_build.PORT_NATIVE_DIR)
+                for _ in range(3)]
+        want = native_build.lib_path("png", native_build.PORT_NATIVE_DIR)
+    assert len(built) == 1 and declared == [libs[0]]
+    assert all(lib is libs[0] for lib in libs) and libs[0].path == want
 
 
 @pytest.mark.slow
