@@ -712,16 +712,39 @@ def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def hold_attention(kernel: str, shape: str, got, want, exact, bf16_launched: bool,
+                   **info) -> None:
+    """Emits one ``kernel_check`` line of an attention kernel's output
+    ``got`` against its plain chain's ``want`` and checks it: f32 at
+    SAM_ATTN_F32_RTOL; bf16 per row within the JAX bf16 budget of the plain
+    bf16 chain, at least as close as that chain to ``exact()`` (the f32
+    chain on the same bf16 inputs), and launched on the bf16 route."""
+    line = {"phase": "kernel_check", "kernel": kernel, "shape": shape, **info,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "rel_l2_err": rel_l2(got, want)}
+    if got.dtype == torch.float32:
+        ok = bool(torch.allclose(got, want, rtol=SAM_ATTN_F32_RTOL,
+                                 atol=SAM_ATTN_F32_RTOL * float(want.abs().max())))
+        line.update(rtol=SAM_ATTN_F32_RTOL, ok=ok)
+    else:
+        ref = exact()
+        cos = F.cosine_similarity(got.float(), want.float(), dim=-1).min()
+        kernel_err, chain_err = rel_l2(got, ref), rel_l2(want, ref)
+        ok = bool(cos > SAM_ATTN_BF16_MIN_COS and kernel_err <= chain_err and bf16_launched)
+        line.update(min_row_cos=float(cos), min_cos=SAM_ATTN_BF16_MIN_COS,
+                    rel_l2_err_vs_f32=kernel_err, chain_rel_l2_err_vs_f32=chain_err, ok=ok)
+    emit(line)
+    check(ok, f"{kernel} disagrees with the plain chain at {shape}: {line}")
+
+
 def check_sam_attention(dev):
     """SAM's vision-attention kernel (``csrc/sam_attention.cu``), both
     routes, against the plain chain on the card at every
-    :data:`SAM_ATTN_SHAPES` entry: f32 at SAM_ATTN_F32_RTOL; bf16 per row
-    within the JAX bf16 budget of the plain bf16 chain, and at least as
-    close as that chain to the f32 chain on the same (bf16) inputs. Timed
+    :data:`SAM_ATTN_SHAPES` entry (:func:`hold_attention`). Timed
     at the ViT-H global and window shapes beside the plain chain and
     ``F.scaled_dot_product_attention`` given the materialised bias (its
     time leaves the bias's making out)."""
-    from d3fields_tpu_torch.models.sam import attention as sa
+    from d3fields_tpu_torch.models import attention as sa
 
     rows = {}
     for i, (label, (B, nh, hw, hd)) in enumerate(SAM_ATTN_SHAPES.items()):
@@ -733,26 +756,11 @@ def check_sam_attention(dev):
                 got = sa.sam_attention(qkv, rel_h, rel_w, hw)
                 torch.cuda.synchronize()
                 want = sa.sam_attention_plain(qkv, rel_h, rel_w, hw)
-                line = {"phase": "kernel_check", "kernel": "sam_attention",
-                        "shape": f"{label}_{name}", "B": B, "nh": nh, "hw": list(hw), "hd": hd,
-                        "max_abs_err": float((got.float() - want.float()).abs().max()),
-                        "rel_l2_err": rel_l2(got, want)}
-                if dtype == torch.float32:
-                    ok = bool(torch.allclose(got, want, rtol=SAM_ATTN_F32_RTOL,
-                                             atol=SAM_ATTN_F32_RTOL * float(want.abs().max())))
-                    line.update(rtol=SAM_ATTN_F32_RTOL, ok=ok)
-                else:
-                    exact = sa.sam_attention_plain(qkv.float(), rel_h.float(), rel_w.float(), hw)
-                    cos = F.cosine_similarity(got.float(), want.float(), dim=-1).min()
-                    kernel_err, chain_err = rel_l2(got, exact), rel_l2(want, exact)
-                    ok = bool(cos > SAM_ATTN_BF16_MIN_COS and kernel_err <= chain_err
-                              and sa.sam_attention.launches_bf16 == before + 1)
-                    line.update(min_row_cos=float(cos), min_cos=SAM_ATTN_BF16_MIN_COS,
-                                rel_l2_err_vs_f32=kernel_err, chain_rel_l2_err_vs_f32=chain_err,
-                                ok=ok)
-                    del exact
-            emit(line)
-            check(ok, f"sam_attention disagrees with the plain chain at {label}_{name}: {line}")
+                hold_attention("sam_attention", f"{label}_{name}", got, want,
+                               lambda: sa.sam_attention_plain(qkv.float(), rel_h.float(),
+                                                              rel_w.float(), hw),
+                               sa.sam_attention.launches_bf16 == before + 1,
+                               B=B, nh=nh, hw=list(hw), hd=hd)
             if label in ("global", "window"):
                 rows[f"{label}_{name}"] = time_sam_attention(f"{label}_{name}", qkv, rel_h, rel_w,
                                                              hw)
@@ -771,7 +779,7 @@ def time_sam_attention(shape: str, qkv, rel_h, rel_w, hw) -> dict:
     bound counts q . k and p v at the route's peak and q, k, v, the bias
     terms and the output moved once."""
     from d3fields_tpu_torch import _build
-    from d3fields_tpu_torch.models.sam import attention as sa
+    from d3fields_tpu_torch.models import attention as sa
 
     B, L, _, nh, hd = qkv.shape
     h, w = hw
@@ -805,6 +813,65 @@ def time_sam_attention(shape: str, qkv, rel_h, rel_w, hw) -> dict:
     return row
 
 
+# DINOv2 attention shapes (the kernel's bias-free mode): B (views), tokens
+VIT_ATTN_SHAPES = {
+    "vit_l": (4, 769),   # ViT-L/14 on the rig's 4 views: a 24x32 grid and CLS
+    "ragged": (2, 130),  # a ragged last tile of rows and keys
+}
+
+
+def check_vit_attention(dev):
+    """DINOv2's attention (``models/attention.py::vit_attention``, the
+    kernel's bias-free mode), both routes, held to the plain chain on the
+    card at every :data:`VIT_ATTN_SHAPES` entry (:func:`hold_attention`);
+    timed at ViT-L's shape beside the plain chain and
+    ``F.scaled_dot_product_attention``."""
+    from d3fields_tpu_torch import _build
+    from d3fields_tpu_torch.models import attention as at
+
+    rows = {}
+    for i, (label, (B, L)) in enumerate(VIT_ATTN_SHAPES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            gen = torch.Generator(device=dev).manual_seed(60 + i)
+            qkv = torch.randn((B, L, 3 * 16 * 64), generator=gen, device=dev)
+            qkv = qkv.reshape(B, L, 3, 16, 64).to(dtype)
+            before = at.vit_attention.launches_bf16
+            with torch.no_grad():
+                got = at.vit_attention(qkv)
+                torch.cuda.synchronize()
+                want = at.vit_attention_plain(qkv)
+                hold_attention("vit_attention", f"{label}_{name}", got, want,
+                               lambda: at.vit_attention_plain(qkv.float()),
+                               at.vit_attention.launches_bf16 == before + 1,
+                               B=B, L=L, nh=16, hd=64)
+            if label != "vit_l":
+                continue
+            out = torch.empty((B, L, 16 * 64), dtype=dtype, device=dev)
+            lib = _build.load("sam_attention", at.declare)
+            entry = lib.d3f_attention_bf16 if dtype == torch.bfloat16 else lib.d3f_attention_f32
+            q0, k0, v0 = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            args = (q0.data_ptr(), k0.data_ptr(), v0.data_ptr(), out.data_ptr(), B, L, 16, 64,
+                    q0.stride(0), q0.stride(1), q0.stride(2), 0.125)
+            heads = qkv.permute(2, 0, 3, 1, 4)
+            with torch.no_grad():
+                rows[f"{label}_{name}"] = kernel_time(
+                    "vit_attention", f"{label}_{name}",
+                    {"ms": lambda: at.vit_attention(qkv),
+                     "launch_ms": lambda: _build.launch("sam_attention", dev, entry, *args),
+                     "plain_ms": lambda: at.vit_attention_plain(qkv),
+                     "library_ms": lambda: F.scaled_dot_product_attention(
+                         heads[0], heads[1], heads[2])},
+                    qkv.element_size() * 4 * B * L * 16 * 64, 4 * B * 16 * L * L * 64,
+                    peak_flops=PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
+                    dtype=name, library="F.scaled_dot_product_attention")
+            del qkv, got, want
+    return {"name": "vit_attention", "route": "cuda",
+            "source": "d3fields_tpu_torch/csrc/sam_attention.cu (bias-free mode)",
+            "replaces": "none (d3fields_tpu/models/dinov2.py _block's attention, XLA-fused)",
+            "max_abs_err": None, **rows["vit_l_bf16"], "shapes": rows}
+
+
 def capture_gather_inputs(detector, images) -> dict:
     """The gather inputs of the first encoder and the first decoder layer of
     the detector's forward on ``images`` (the forward a segment_views
@@ -830,10 +897,11 @@ def capture_gather_inputs(detector, images) -> dict:
 def kernel_wrappers():
     from d3fields_tpu_torch.fields.kernels import field_tile, fused_weighted_interp
     from d3fields_tpu_torch.models.groundingdino.deform_gather import deform_gather
-    from d3fields_tpu_torch.models.sam.attention import sam_attention
+    from d3fields_tpu_torch.models.attention import sam_attention, vit_attention
 
     return {"fused_weighted_interp": fused_weighted_interp, "field_tile": field_tile,
-            "deform_gather": deform_gather, "sam_attention": sam_attention}
+            "deform_gather": deform_gather, "sam_attention": sam_attention,
+            "vit_attention": vit_attention}
 
 
 def reset_launch_counts() -> None:
@@ -901,6 +969,9 @@ def serve(dev, num_requests: int = 3):
         check(counts[kernel] == num_requests * tiles,
               f"{kernel} launched {counts[kernel]} times, expected {num_requests * tiles}")
     check(counts["deform_gather"] == 0, "the field query launched the detector's kernel")
+    layers = cfg.num_layers * num_requests  # DINOv2's attention: one launch a layer, f32
+    check(counts["vit_attention"] == layers and counts["vit_attention_bf16"] == 0,
+          f"DINOv2's attention launched {counts['vit_attention']} times, expected {layers}")
 
     # where the request time goes: the feature backend alone, and the
     # backbone on the CPU for one view as a check of the card's descriptors
@@ -936,7 +1007,8 @@ def serve(dev, num_requests: int = 3):
 
 # the names of the port's CUDA kernels (csrc/*.cu) in a profiler trace
 PORT_KERNELS = ("fused_interp_slice_kernel", "fused_weighted_interp_kernel",
-                "field_tile_kernel", "deform_gather_kernel")
+                "field_tile_kernel", "deform_gather_kernel", "sam_attention_bf16_kernel",
+                "sam_attention_f32_kernel")
 
 
 def profile_stage(stage: str, fn, top: int = 12) -> dict:
@@ -2136,8 +2208,12 @@ def serving_step(dev, frames: int = SERVING_FRAMES, compute_dtype: str = "float3
           == (step.tracker.core.curr_ti, step.tracker.core.last_mem_ti)
           == (fus.video_tracker.core.curr_ti, fus.video_tracker.core.last_mem_ti),
           "the trackers' counters differ")
+    # DINOv2's attention, one launch a layer of each backbone call; nothing else
+    layers = backbone.cfg.num_layers
     for c in (counts, fcounts, scounts):
-        check(sum(c.values()) == 0, f"the serving step launched {c}")
+        dino = c["vit_attention"]
+        check(dino > 0 and dino % layers == 0 and sum(c.values()) == dino + c["vit_attention_bf16"],
+              f"the serving step launched {c}")
     emit({"phase": "serving_step", "compute_dtype": compute_dtype, "frames": frames,
           "iters": tcfg.iters,
           "staged": staged_rows, "fused_frame_ms": fused_ms,
@@ -4131,7 +4207,7 @@ def main() -> int:
         wall[name], t_lap[0] = now - t_lap[0], now
 
     rows = [check_fused_weighted_interp(dev), check_field_tile(dev), check_deform_gather(dev),
-            check_sam_attention(dev)]
+            check_sam_attention(dev), check_vit_attention(dev)]
     lap("kernel_check")
     by_path = {}
     by_path["serve"], backbone, f32_update_ms = serve(dev)

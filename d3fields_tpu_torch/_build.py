@@ -21,9 +21,11 @@ from d3fields_tpu_torch import native_build
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # the sources one load builds together, each wave one set of parallel
-# nvcc: the field query's two kernels, then segmentation's two
-WAVES = (("fused_interp", "field_tile"), ("deform_gather", "sam_attention"))
-SOURCES = tuple(name for wave in WAVES for name in wave)
+# nvcc: the field query's (its two kernels and DINOv2's attention), then
+# segmentation's (the detector's gather and SAM's attention). A source
+# builds with the first wave that names it, unless another wave built it
+WAVES = (("fused_interp", "field_tile", "sam_attention"), ("deform_gather", "sam_attention"))
+SOURCES = tuple(dict.fromkeys(name for wave in WAVES for name in wave))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +50,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` with ``declare`` applied
-    once, built first if missing, with the other missing libraries of its
-    wave (:data:`WAVES`)."""
+    once, built first if missing, with the other missing libraries of the
+    first wave that names it (:data:`WAVES`)."""
     wave = next((w for w in WAVES if name in w), (name,))
     return native_build.load(_source(name), NVCC_FLAGS, declare, [_source(n) for n in wave])
 

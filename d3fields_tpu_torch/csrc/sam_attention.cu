@@ -1,10 +1,12 @@
-// SAM's vision attention with decomposed relative positions, in one launch
-// a layer: every view, window and head.
+// The vision transformers' attention in one launch a layer: every view,
+// window and head. SAM's layers add decomposed relative positions (the
+// bias modes); DINOv2's take none (d3f_attention_*, the bias-free mode).
 //
 // Replaces no TPU kernel. In the JAX package this is
 // d3fields_tpu/models/sam/model.py::_vision_attention with _rel_pos_bias,
-// which XLA fuses on the TPU; in the port's plain chain
-// (models/sam/attention.py::sam_attention_plain) it is a matmul writing
+// and the attention of d3fields_tpu/models/dinov2.py::_block, which XLA
+// fuses on the TPU. In the port's plain chain for SAM
+// (models/attention.py::sam_attention_plain) it is a matmul writing
 // the (B*nh, L, L) logits, a 5-D broadcast writing the bias at the same
 // size, an in-place add, an f32 copy, a softmax, a cast back and a second
 // matmul, with permuted copies of q, k, v and the output around them.
@@ -25,6 +27,17 @@
 // written in the layout the output projection reads, (B, L, nh, hd). A
 // window's padded tokens are keys like any other (their qkv rows are the
 // projection of zeros), as upstream SAM has them.
+//
+// The bias-free mode (models/attention.py::vit_attention, DINOv2's layers;
+// its plain chain vit_attention_plain is a matmul writing the (B*nh, L, L)
+// logits, an f32 copy, a scale, a softmax, a cast back and a second matmul)
+// computes out[i] = softmax_j(scale * q[i] . k[j]) v over any L >= 1 (769
+// for a 24x32 patch grid and its CLS token): keys past L are masked out of
+// the softmax, rows past L are not stored. It takes no rows and stages no
+// bias; the tile loop, the online softmax and the epilogue are the bias
+// modes' own, instantiated without the bias. At DINOv2 ViT-L over 4 views
+// (B=4, nh=16, L=769, hd=64): 9.69 GFLOP, 9.8 us in bf16 and 0.145 ms in
+// f32 at the peaks below; q, k, v and the output are 25 MB.
 //
 // What bounds it on an H100. Operations: 4 * L^2 * hd a (b, head), 343.6
 // GFLOP at a ViT-H global layer (B=4, nh=16, L=4096, hd=80): 0.35 ms at
@@ -61,9 +74,10 @@
 // through shared memory to p v. The bias always comes from the staged
 // tables.
 //
-// Head widths are a template parameter: 16 (SamConfig.tiny_test), 64
-// (ViT-B/L) and 80 (ViT-H) are instantiated; any other width returns
-// cudaErrorInvalidValue. Times and bounds: PERF.md (chip_smoke.py).
+// Head widths are a template parameter: the bias modes instantiate 16
+// (SamConfig.tiny_test), 64 (ViT-B/L) and 80 (ViT-H), the bias-free mode 64
+// (every DINOv2); any other width returns cudaErrorInvalidValue. Times and
+// bounds: PERF.md (chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +100,11 @@ struct Args {
   int64_t sb, sl, sh;  // q, k and v strides (elements) of a batch entry, a token, a head
   float scale;
 };
+
+// How the logits get their bias: SAM's decomposed relative positions from
+// registers (a grid w == kBN wide) or from tables staged in shared memory,
+// or none (DINOv2).
+enum class Bias { kRegisters, kStaged, kNone };
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -195,6 +214,10 @@ __device__ __forceinline__ void stage_bias(float* bh, float* bw, const T* __rest
 // more, shorter blocks)
 constexpr int kAlignedGroups = 2;
 constexpr int kGeneralGroups = 1;
+// the bias-free mode (DINOv2, L = 769: short loops of 13 tiles): one group a
+// warp, and blocks small enough in registers for 4 of them an SM
+constexpr int kNoBiasGroups = 1;
+constexpr int kNoBiasMinBlocks = 4;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -209,12 +232,13 @@ constexpr int bf16_smem_tiles() {
   return (kBMb + 4 * kBN) * (HD + 8) * static_cast<int>(sizeof(bf16));
 }
 
-template <int HD, bool kAligned, int kGroups>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int HD, Bias kBias, int kGroups>
+__global__ void __launch_bounds__(kThreads, kBias == Bias::kNone ? kNoBiasMinBlocks : 2)
     sam_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ rows,
                               bf16* __restrict__ out, Args s) {
   constexpr int kBMb = 4 * 16 * kGroups;  // query rows a block: kGroups 16-row groups a warp
+  constexpr bool kAligned = kBias == Bias::kRegisters;
   constexpr int kPitch = HD + 8;
   constexpr int kChunks = HD / 8;  // 16-byte chunks of a row
   constexpr int kKSteps = HD / 16;
@@ -291,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     }
-  } else {
+  } else if constexpr (kBias == Bias::kStaged) {
     stage_bias<kBMb>(bh_s, bw_s, rows, tab_row0, m0, scale2, s);
   }
   const float inv_w = 1.f / static_cast<float>(s.w);
@@ -332,7 +356,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 
       // logits of 16 rows x 64 keys a group; the sums start from the
-      // rel_pos_w terms where they are the same every tile (aligned)
+      // rel_pos_w terms where they are the same every tile (aligned), from
+      // zero elsewhere
       float sc[kGroups][8][4];
 #pragma unroll
       for (int gi = 0; gi < kGroups; ++gi) {
@@ -373,6 +398,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 
       const int n0 = t * kBN;
+      // a bias-free tile with no key past L tests none
+      const bool full = kBias == Bias::kNone && n0 + kBN <= L;
 #pragma unroll
       for (int gi = 0; gi < kGroups; ++gi) {
 #pragma unroll
@@ -385,9 +412,13 @@ __global__ void __launch_bounds__(kThreads, 2)
               float& x = sc[gi][nt][2 * i + e];
               if constexpr (kAligned) {
                 x = fmaf(x, scale2, bh_t[gi][i]);
-              } else if (j < L) {
-                const int kh = key_row(j, inv_w), r = lr[gi][i];
-                x = fmaf(x, scale2, bh_s[r * s.h + kh] + bw_s[r * s.w + (j - kh * s.w)]);
+              } else if (full || j < L) {
+                if constexpr (kBias == Bias::kStaged) {
+                  const int kh = key_row(j, inv_w), r = lr[gi][i];
+                  x = fmaf(x, scale2, bh_s[r * s.h + kh] + bw_s[r * s.w + (j - kh * s.w)]);
+                } else {
+                  x *= scale2;
+                }
               } else {
                 x = -INFINITY;
               }
@@ -490,7 +521,7 @@ constexpr int f32_smem_tiles() {
   return (HD * kQPitch + HD * kKPitch + kBN * HD + kBN * kQPitch) * static_cast<int>(sizeof(float));
 }
 
-template <int HD>
+template <int HD, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     sam_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ rows,
@@ -527,7 +558,7 @@ __global__ void __launch_bounds__(kThreads)
     qT[(4 * d4 + 2) * kQPitch + r] = x.z;
     qT[(4 * d4 + 3) * kQPitch + r] = x.w;
   }
-  stage_bias<kBM>(bh_s, bw_s, rows, tab_row0, m0, s.scale, s);
+  if constexpr (kBias) stage_bias<kBM>(bh_s, bw_s, rows, tab_row0, m0, s.scale, s);
   const float inv_w = 1.f / static_cast<float>(s.w);
 
   float o[8][kCols];
@@ -586,12 +617,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int j = n0 + cg * 4 + c;
-      const int kh = key_row(j, inv_w), kw = j - kh * s.w;
+      if constexpr (kBias) {
+        const int kh = key_row(j, inv_w), kw = j - kh * s.w;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rg * 8 + i;
-        sc[i][c] = j < L ? fmaf(sc[i][c], s.scale, bh_s[r * s.h + kh] + bw_s[r * s.w + kw])
-                         : -INFINITY;
+        for (int i = 0; i < 8; ++i) {
+          const int r = rg * 8 + i;
+          sc[i][c] = j < L ? fmaf(sc[i][c], s.scale, bh_s[r * s.h + kh] + bw_s[r * s.w + kw])
+                           : -INFINITY;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sc[i][c] = j < L ? sc[i][c] * s.scale : -INFINITY;
       }
     }
 
@@ -673,23 +709,42 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* rows, v
                 const Args& s, cudaStream_t stream) {
   if (s.w == kBN) {
     constexpr int kG = kAlignedGroups;
-    return launch<decltype(&sam_attention_bf16_kernel<HD, true, kG>), bf16>(
-        sam_attention_bf16_kernel<HD, true, kG>, 64 * kG, bf16_smem_tiles<HD, kG>(), q, k, v,
-        rows, out, s, stream);
+    return launch<decltype(&sam_attention_bf16_kernel<HD, Bias::kRegisters, kG>), bf16>(
+        sam_attention_bf16_kernel<HD, Bias::kRegisters, kG>, 64 * kG, bf16_smem_tiles<HD, kG>(),
+        q, k, v, rows, out, s, stream);
   }
   constexpr int kG = kGeneralGroups;
   const int smem =
       bf16_smem_tiles<HD, kG>() + 64 * kG * (s.h + s.w) * static_cast<int>(sizeof(float));
-  return launch<decltype(&sam_attention_bf16_kernel<HD, false, kG>), bf16>(
-      sam_attention_bf16_kernel<HD, false, kG>, 64 * kG, smem, q, k, v, rows, out, s, stream);
+  return launch<decltype(&sam_attention_bf16_kernel<HD, Bias::kStaged, kG>), bf16>(
+      sam_attention_bf16_kernel<HD, Bias::kStaged, kG>, 64 * kG, smem, q, k, v, rows, out, s,
+      stream);
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* rows, void* out,
                const Args& s, cudaStream_t stream) {
   const int smem = f32_smem_tiles<HD>() + kBM * (s.h + s.w) * static_cast<int>(sizeof(float));
-  return launch<decltype(&sam_attention_f32_kernel<HD>), float>(
-      sam_attention_f32_kernel<HD>, kBM, smem, q, k, v, rows, out, s, stream);
+  return launch<decltype(&sam_attention_f32_kernel<HD, true>), float>(
+      sam_attention_f32_kernel<HD, true>, kBM, smem, q, k, v, rows, out, s, stream);
+}
+
+// the bias-free mode: no rows, no tables in shared memory
+template <int HD>
+int launch_bf16_no_bias(const void* q, const void* k, const void* v, void* out, const Args& s,
+                        cudaStream_t stream) {
+  constexpr int kG = kNoBiasGroups;
+  return launch<decltype(&sam_attention_bf16_kernel<HD, Bias::kNone, kG>), bf16>(
+      sam_attention_bf16_kernel<HD, Bias::kNone, kG>, 64 * kG, bf16_smem_tiles<HD, kG>(), q, k,
+      v, nullptr, out, s, stream);
+}
+
+template <int HD>
+int launch_f32_no_bias(const void* q, const void* k, const void* v, void* out, const Args& s,
+                       cudaStream_t stream) {
+  return launch<decltype(&sam_attention_f32_kernel<HD, false>), float>(
+      sam_attention_f32_kernel<HD, false>, kBM, f32_smem_tiles<HD>(), q, k, v, nullptr, out, s,
+      stream);
 }
 
 // a bias term count padded to 8, so that every row of the GEMM's output
@@ -741,4 +796,23 @@ extern "C" int d3f_sam_attention_f32(const void* q, const void* k, const void* v
     case 80: return launch_f32<80>(q, k, v, rows, out, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bias-free mode, softmax(scale * q k^T) v of every (b, head), as
+// above without rows, h or w: any 1 <= L < 2^30, B and nh >= 1 and < 2^16.
+// Head width 64 only; another returns cudaErrorInvalidValue.
+extern "C" int d3f_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                  int64_t B, int64_t L, int64_t nh, int64_t hd, int64_t sb,
+                                  int64_t sl, int64_t sh, float scale, void* stream) {
+  if (hd != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16_no_bias<64>(q, k, v, out, make_args(B, L, nh, 0, 0, sb, sl, sh, scale),
+                                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int d3f_attention_f32(const void* q, const void* k, const void* v, void* out,
+                                 int64_t B, int64_t L, int64_t nh, int64_t hd, int64_t sb,
+                                 int64_t sl, int64_t sh, float scale, void* stream) {
+  if (hd != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_f32_no_bias<64>(q, k, v, out, make_args(B, L, nh, 0, 0, sb, sl, sh, scale),
+                                static_cast<cudaStream_t>(stream));
 }

@@ -11,14 +11,19 @@ per-view descriptor map (``fusion.py:593-629``).
   carries the JAX package's stacked parameter dict across.
 - Patch embedding is an unfold times the (D, 3·P·P) view of the conv
   weight, so it is a matrix product that TF32 settings for convolutions do
-  not touch. GELU is exact, attention is plain ``matmul`` + ``softmax``.
+  not touch. GELU is exact. Each layer's attention core is
+  :func:`attention.vit_attention`: on the card one launch of
+  ``csrc/sam_attention.cu``'s bias-free mode, which keeps the logits in
+  f32 and never writes them; on the CPU the plain ``matmul`` + ``softmax``
+  chain.
 - The transformer runs in the dtype of its weights, float32 or bfloat16
   (the JAX package's ``compute_dtype``, ``dinov2.py:125-176``): a bf16
   model takes bf16 pixels, positions and tokens; its LayerNorms take their
   statistics and apply the affine in f32 and round once (torch's layer
   norm of a bf16 tensor); the attention logits are scaled and soft-maxed
-  in f32 and the probabilities rounded to bf16; the final tokens come back
-  as f32.
+  in f32 (the plain chain rounds them to bf16 first, the kernel does not)
+  and the probabilities rounded to bf16; the final tokens come back as
+  f32.
 - :class:`Dinov2Backbone` resizes with the bit-exact Pillow resampler
   ('pil', default) or antialiased bilinear ('device'), both on the device,
   normalises,
@@ -37,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from d3fields_tpu_torch.models.attention import vit_attention
 from d3fields_tpu_torch.models.common import cast_copy, imagenet_stats, linear, torch_dtype
 from d3fields_tpu_torch.models.resize import (
     bilinear_resize, cubic_resize_np, pil_bilinear_resize_u8,
@@ -100,13 +106,7 @@ class _Attention(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         B, N, D = x.shape
         nh = self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, nh, D // nh).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nh, N, dh)
-        # scaled in f32, as the JAX package's product with a numpy scalar promotes
-        logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / np.sqrt(D // nh))
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, D)
-        return self.proj(out)
+        return self.proj(vit_attention(self.qkv(x).reshape(B, N, 3, nh, D // nh)))
 
 
 class _Mlp(nn.Module):

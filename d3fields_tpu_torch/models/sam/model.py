@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from d3fields_tpu_torch.models.common import cast_copy, embedding, linear, named
-from d3fields_tpu_torch.models.sam.attention import sam_attention
+from d3fields_tpu_torch.models.attention import sam_attention
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor

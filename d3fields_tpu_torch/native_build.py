@@ -139,8 +139,10 @@ def load(src: str, flags: Sequence[str], declare: Callable[[ctypes.CDLL], None],
     ``restype`` of its entry points) applied once, when it is loaded."""
     with _LOCK:
         if src not in _libs:
-            build(tuple(wave) or (src,), flags)
-            handle = ctypes.CDLL(library_path(src, flags))
+            lib = library_path(src, flags)
+            if not os.path.exists(lib):
+                build(tuple(wave) or (src,), flags)
+            handle = ctypes.CDLL(lib)
             declare(handle)
             _libs[src] = handle
         return _libs[src]

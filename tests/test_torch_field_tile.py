@@ -248,17 +248,30 @@ def test_field_tile_rejects_what_the_kernel_does_not_take():
         kernels.field_tile(st, pts, out, {f"m{i}": st.mask for i in range(5)})
 
 
-def test_load_builds_the_query_kernels_in_one_wave(monkeypatch):
+def test_load_builds_the_query_kernels_in_one_wave(monkeypatch, tmp_path):
+    """The query's kernels and DINOv2's attention build in one wave,
+    whichever loads first; the segment's in another; a library already
+    built builds nothing more."""
     built = []
     monkeypatch.setattr(native_build, "_libs", {})
+    monkeypatch.setattr(native_build, "lib_dir", lambda kind, root=None: str(tmp_path / kind))
     monkeypatch.setattr(native_build, "build", lambda srcs, flags: built.append(
         tuple(os.path.basename(s)[:-len(".cu")] for s in srcs)))
     monkeypatch.setattr(ctypes, "CDLL", lambda path: path)
-    for name in ("field_tile", "fused_interp", "deform_gather"):
+    for name in ("sam_attention", "field_tile", "fused_interp", "deform_gather"):
         _build.load(name, lambda lib: None)
-    assert built == [("fused_interp", "field_tile"), ("fused_interp", "field_tile"),
-                     ("deform_gather", "sam_attention")]
-    # every CUDA source is in one wave
+    query = ("fused_interp", "field_tile", "sam_attention")
+    assert built == [query, query, query, ("deform_gather", "sam_attention")]
+    # the segment cell: the detector's load builds SAM's attention with it,
+    # and SAM's own load then builds nothing of the query's wave
+    built.clear()
+    monkeypatch.setattr(native_build, "_libs", {})
+    lib = _build.lib_path("sam_attention")
+    os.makedirs(os.path.dirname(lib))
+    open(lib, "w").close()
+    _build.load("sam_attention", lambda lib: None)
+    assert built == []
+    # every CUDA source is in a wave
     assert sorted(_build.SOURCES) == sorted(
         f[:-len(".cu")] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
 

@@ -101,12 +101,14 @@ def test_load_native_builds_a_packaged_source_into_the_cache(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("suffix", [".cu", ".cpp"])
-def test_repeated_loads_declare_a_library_once(suffix, monkeypatch):
+def test_repeated_loads_declare_a_library_once(suffix, monkeypatch, tmp_path):
     """A CUDA kernel's and a host source's library alike: the first load
-    builds it (stubbed here) and applies its declare; later loads return
-    the same handle and declare nothing again."""
+    builds it (stubbed here; the libraries go to an empty directory, so it
+    is missing) and applies its declare; later loads return the same
+    handle and declare nothing again."""
     built, declared = [], []
     monkeypatch.setattr(native_build, "_libs", {})
+    monkeypatch.setattr(native_build, "lib_dir", lambda kind, root=None: str(tmp_path / kind))
     monkeypatch.setattr(native_build, "build", lambda srcs, flags: built.append(tuple(srcs)))
     monkeypatch.setattr(ctypes, "CDLL", lambda path: types.SimpleNamespace(path=path))
     if suffix == ".cu":

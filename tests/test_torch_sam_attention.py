@@ -1,4 +1,4 @@
-"""SAM's vision attention (``models/sam/attention.py``) and its CUDA kernel
+"""SAM's vision attention (``models/attention.py``) and its CUDA kernel
 (``csrc/sam_attention.cu``).
 
 On the CPU: the plain version is the composition ``_VisionAttention``
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from d3fields_tpu_torch.models.sam import attention as sa
+from d3fields_tpu_torch.models import attention as sa
 from d3fields_tpu_torch.models.sam import model as sm
 from d3fields_tpu_torch.models.sam.predictor import SamPredictor
 from d3fields_tpu_torch.utils.profiling import tracer
