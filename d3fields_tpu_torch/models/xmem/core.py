@@ -20,7 +20,8 @@ compute_dtype`` 'bfloat16' makes :class:`XMemCore` round a copy of them to
 bf16 once, at construction (JAX ``core.py:300-317``). The key encoder, the
 decoder and the value encoder then take bf16 images, hidden states and
 readouts; the memory keeps f32 keys, values and hidden states, the memory
-read takes f32 queries, and the probabilities come back f32. Nothing here
+read takes f32 queries, and the decoder's logits go through the sigmoid
+and the soft aggregation in f32 (``network.XMem.segment``). Nothing here
 records autograd.
 """
 
@@ -38,6 +39,7 @@ from d3fields_tpu_torch.models.xmem import memory as M
 from d3fields_tpu_torch.models.xmem.network import XMem
 from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 
@@ -75,13 +77,15 @@ def seed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob: T
     background (V, O+1, H, W); writes the memory in place."""
     dt = _dtype(model)
     img = _nchw(images, dt)
-    key, shrinkage, selection, f16, _, _ = model.encode_key(img)
+    with tracer.span("xmem.key"):
+        key, shrinkage, selection, f16, _, _ = model.encode_key(img)
     prob = B.soft_aggregate(mask_prob, dim=1)
-    value, hidden = model.encode_value(img, f16, mem.hidden.to(dt), prob[:, 1:].to(dt),
-                                       is_deep_update=True)
-    mem.hidden = hidden.float()
-    k, s, e = _flatten_key(key, shrinkage, selection)
-    M.add_memory(mem, k, s, _values(value), e)
+    with tracer.span("xmem.memorize"):
+        value, hidden = model.encode_value(img, f16, mem.hidden.to(dt), prob[:, 1:].to(dt),
+                                           is_deep_update=True)
+        mem.hidden = hidden.float()
+        k, s, e = _flatten_key(key, shrinkage, selection)
+        M.add_memory(mem, k, s, _values(value), e)
     return prob
 
 
@@ -98,27 +102,31 @@ def propagate_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, is_mem_
     hidden. Returns (V, O+1, H, W); writes the memory in place."""
     dt = _dtype(model)
     img = _nchw(images, dt)
-    key, shrinkage, selection, f16, f8, f4 = model.encode_key(img)
+    with tracer.span("xmem.key"):
+        key, shrinkage, selection, f16, f8, f4 = model.encode_key(img)
     qk, _, qe = _flatten_key(key, None, selection)
-    readout = M.match_memory(mem, qk.float(), qe.float())
+    with tracer.span("xmem.read"):
+        readout = M.match_memory(mem, qk.float(), qe.float())
     V, O, CV = readout.shape[:3]
     readout = readout.reshape(V, O, CV, key.shape[2], key.shape[3])
     # the decoder's hidden is used on normal frames, and on every frame
     # without sync
-    dec_hidden, _, prob = model.segment(
-        f16, f8, f4, mem.hidden.to(dt), readout.to(dt),
-        h_out=(not sync) or (not is_mem_frame),
-        obj_active=mem.active if mem.multi_group else None)
+    with tracer.span("xmem.decode"):
+        dec_hidden, _, prob = model.segment(
+            f16, f8, f4, mem.hidden.to(dt), readout.to(dt),
+            h_out=(not sync) or (not is_mem_frame),
+            obj_active=mem.active if mem.multi_group else None)
     if not sync:
         # adopted before the value encoder runs (inference_core.py:70-71,97-99)
         mem.hidden = dec_hidden.float()
     if is_mem_frame:
-        value, hidden = model.encode_value(img, f16, mem.hidden.to(dt), prob[:, 1:].to(dt),
-                                           is_deep_update=True)
-        if sync or is_deep_update:
-            mem.hidden = hidden.float()
-        k, s, e = _flatten_key(key, shrinkage, selection)
-        M.add_memory(mem, k, s, _values(value), e)
+        with tracer.span("xmem.memorize"):
+            value, hidden = model.encode_value(img, f16, mem.hidden.to(dt), prob[:, 1:].to(dt),
+                                               is_deep_update=True)
+            if sync or is_deep_update:
+                mem.hidden = hidden.float()
+            k, s, e = _flatten_key(key, shrinkage, selection)
+            M.add_memory(mem, k, s, _values(value), e)
     elif sync:
         mem.hidden = dec_hidden.float()
     return prob
@@ -141,15 +149,19 @@ def reseed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob:
     schedule that has not elapsed (``inference_core.py:51-55``)."""
     dt = _dtype(model)
     img = _nchw(images, dt)
-    key, shrinkage, selection, f16, f8, f4 = model.encode_key(img)
+    with tracer.span("xmem.key"):
+        key, shrinkage, selection, f16, f8, f4 = model.encode_key(img)
     qk, _, qe = _flatten_key(key, None, selection)
-    readout = M.match_memory(mem, qk.float(), qe.float(), count_usage=False)
+    with tracer.span("xmem.read"):
+        readout = M.match_memory(mem, qk.float(), qe.float(), count_usage=False)
     V, O, CV = readout.shape[:3]
     readout = readout.reshape(V, O, CV, key.shape[2], key.shape[3])
     # without sync a mask-given frame that segments also adopts the
     # decoder's hidden for the active objects (inference_core.py:56,70-71)
-    dec_hidden, _, prob_pred = model.segment(f16, f8, f4, mem.hidden.to(dt), readout.to(dt),
-                                             h_out=not sync, obj_active=mem.active)
+    with tracer.span("xmem.decode"):
+        dec_hidden, _, prob_pred = model.segment(f16, f8, f4, mem.hidden.to(dt),
+                                                 readout.to(dt), h_out=not sync,
+                                                 obj_active=mem.active)
     zero = torch.zeros((), device=img.device)
     active = mem.active                                        # (V, O)
     provided = provided.to(img.device).expand_as(active)
@@ -170,11 +182,12 @@ def reseed_step_views(model: XMem, mem: M.XMemMemory, images: Tensor, mask_prob:
                                   mem.hidden)
     hidden0 = torch.where((entering | ~active)[..., None, None, None], zero, base_hidden)
     M.activate_objects(mem, provided)
-    value, hidden = model.encode_value(img, f16, hidden0.to(dt), prob[:, 1:].to(dt),
-                                       is_deep_update=True)
-    mem.hidden = hidden.float() if adopt_deep is None or adopt_deep else hidden0
-    k, s, e = _flatten_key(key, shrinkage, selection)
-    M.add_memory(mem, k, s, _values(value), e)
+    with tracer.span("xmem.memorize"):
+        value, hidden = model.encode_value(img, f16, hidden0.to(dt), prob[:, 1:].to(dt),
+                                           is_deep_update=True)
+        mem.hidden = hidden.float() if adopt_deep is None or adopt_deep else hidden0
+        k, s, e = _flatten_key(key, shrinkage, selection)
+        M.add_memory(mem, k, s, _values(value), e)
     return prob
 
 
@@ -274,6 +287,12 @@ class XMemCore:
                                          for k, v in d.items()}, dev)
                      for i, dev in enumerate(self._views.devices)]
 
+    @property
+    def read_elements(self) -> int:
+        """The memory elements a read attends now, [long-term, working]
+        (every view group's memory has the same sizes)."""
+        return self.mems[0].l_size + self.mems[0].w_size
+
     def _tensor(self, x) -> Tensor:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
@@ -305,10 +324,13 @@ class XMemCore:
             # (always at t=0)
             deep_fires = self.deep_update_sync or (
                 self.curr_ti - self.last_deep_update_ti >= self.cfg.deep_update_every)
+            tracer.count("xmem_frames")
+            tracer.count("xmem_mem_frames")
             if self.multi_group:
                 if provided is None:
                     provided = mask_prob.amax(dim=(0, 2, 3)) > 0
                 provided = torch.as_tensor(provided).to(self.device, torch.bool)
+                tracer.count("xmem_read_elements", self.read_elements)
                 prob = self.run_step(reseed_step_views, (images, mask_prob), provided,
                                  None if self.deep_update_sync else deep_fires,
                                  self.deep_update_sync)
@@ -326,6 +348,9 @@ class XMemCore:
             # a scheduled deep update takes effect on a memory frame only
             is_deep_update = (self.curr_ti - self.last_deep_update_ti
                               >= self.cfg.deep_update_every)
+        tracer.count("xmem_frames")
+        tracer.count("xmem_mem_frames", int(is_mem_frame))
+        tracer.count("xmem_read_elements", self.read_elements)
         prob = self.run_step(propagate_step_views, (images,), is_mem_frame,
                          self.deep_update_sync, is_deep_update)
         if is_mem_frame:

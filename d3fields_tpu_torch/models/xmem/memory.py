@@ -38,6 +38,7 @@ import torch
 
 from d3fields_tpu_torch.config import XMemConfig
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 
@@ -389,7 +390,10 @@ def add_memory(mem: XMemMemory, key: Tensor, shrinkage: Tensor, value: Tensor,
     """Append one frame's HW elements and consolidate when full
     (``memory_manager.py:152-189``; eviction precedes consolidation so the
     prototypes always fit). key (V, CK, HW), shrinkage (V, HW), value
-    (V, O, CV, HW), selection (V, CK, HW) or None."""
+    (V, O, CV, HW), selection (V, CK, HW) or None. The tracer's spans
+    ``xmem.evict`` and ``xmem.consolidate`` and its counters
+    ``xmem_evictions`` and ``xmem_consolidations`` see each event of this
+    view group's memory."""
     hw = mem.hw
     if not mem.long_term and mem.w_size >= mem.work_capacity:
         # --disable_long_term: FIFO-drop the oldest frame but the first
@@ -405,8 +409,12 @@ def add_memory(mem: XMemMemory, key: Tensor, shrinkage: Tensor, value: Tensor,
     mem.w_size = s + hw
     if mem.long_term and mem.w_size >= mem.work_capacity:
         if mem.l_size >= mem.long_capacity - mem.num_prototypes:
-            _evict_long_term(mem)
-        _consolidate(mem)
+            with tracer.span("xmem.evict"):
+                _evict_long_term(mem)
+            tracer.count("xmem_evictions")
+        with tracer.span("xmem.consolidate"):
+            _consolidate(mem)
+        tracer.count("xmem_consolidations")
 
 
 def _fifo_drop_second_frame(mem: XMemMemory) -> None:

@@ -76,8 +76,10 @@ class XMem(nn.Module):
         hidden (B, O, CH, h, w); memory_readout (B, O, CV, h, w).
         ``obj_active`` (B, O) bool forces the probability of object slots
         not yet entered to 0 before the soft aggregation. Returns
-        (new hidden or None, logits (B, O, H, W), prob with background
-        (B, O+1, H, W)).
+        (new hidden or None, logits (B, O, H, W) in the networks' dtype,
+        prob with background (B, O+1, H, W) in f32: the sigmoid and the
+        soft aggregation take the logits in f32, whatever the networks'
+        dtype (the JAX package takes a bf16 sigmoid of bf16 logits).
         """
         nb, O = memory_readout.shape[:2]
         dec = self.decoder
@@ -92,7 +94,9 @@ class XMem(nn.Module):
             new_hidden = B.unfold(
                 dec.hidden_update(g16, g8, torch.cat([g4, logits4], dim=1), hid), nb)
         logits = B.unfold(B.upsample_4x_logits(logits4)[:, 0], nb)
-        prob = torch.sigmoid(logits)
+        # the sigmoid in f32: in bf16 it steps by 2^-8 near 1, where the soft
+        # aggregation's log-odds turn one step into up to 0.7
+        prob = torch.sigmoid(logits.float())
         if obj_active is not None:
             prob = torch.where(obj_active[:, :, None, None], prob, torch.zeros_like(prob))
         return new_hidden, logits, B.soft_aggregate(prob, dim=1)

@@ -27,6 +27,7 @@ from d3fields_tpu_torch.models.common import imagenet_stats
 from d3fields_tpu_torch.models.resize import bilinear_resize, bilinear_resize_exact
 from d3fields_tpu_torch.models.xmem.blocks import pad_divide_by, unpad
 from d3fields_tpu_torch.models.xmem.core import XMemCore
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 
@@ -126,7 +127,12 @@ class VideoMaskTracker:
                 return_index: bool = False) -> np.ndarray:
         """One video step for all views; returns (V, H, W, O+1) one-hot
         (channel 0 = background), or with ``return_index`` the (V, H, W)
-        uint8 argmax index mask."""
+        uint8 argmax index mask. The tracer's span ``xmem.process`` holds
+        the whole step, the copy to the host included."""
+        with tracer.span("xmem.process"):
+            return self._process(rgb, mask, return_index)
+
+    def _process(self, rgb, mask, return_index: bool) -> np.ndarray:
         imgs = self._prep_images(rgb)
         if mask is not None and not self.first_mask_loaded:
             prob = self.core.step(imgs, self._prep_masks(np.asarray(mask)))
