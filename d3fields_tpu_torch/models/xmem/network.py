@@ -5,9 +5,10 @@ Counterpart of ``d3fields_tpu/models/xmem/network.py`` (the reference's
 module tree and parameter names, which are the names the JAX package's
 ``convert_torch_state_dict`` reads, so a reference state dict loads into it
 as it is. Layouts are NCHW; the object axis is folded into the batch for
-the conv stacks. :func:`init_params` draws random weights as the JAX
-package's ``init_params`` does; :func:`load_jax_params` carries the JAX
-package's parameter tree across.
+the conv stacks. On the card, with autograd off, ``encode_key`` replays a
+CUDA graph of its forward (``utils/cuda_graph.py``). :func:`init_params`
+draws random weights as the JAX package's ``init_params`` does;
+:func:`load_jax_params` carries the JAX package's parameter tree across.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 
 from d3fields_tpu_torch.config import XMemConfig
 from d3fields_tpu_torch.models.xmem import blocks as B
+from d3fields_tpu_torch.utils.cuda_graph import GraphCache
 from d3fields_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -38,8 +40,17 @@ class XMem(nn.Module):
         self.key_proj = B.KeyProjection(cfg.key_dim, dev)
         self.value_encoder = B.ValueEncoder(cfg.value_dim, cfg.hidden_dim, dev)
         self.decoder = B.Decoder(cfg.value_dim, cfg.hidden_dim, dev)
+        self._key_graphs = GraphCache("xmem_key_graph")
 
     def encode_key(self, image: Tensor, need_sk: bool = True, need_ek: bool = True):
+        """:meth:`encode_key_eager`'s answers. On a CUDA image with autograd
+        off, a replay of a CUDA graph of it, one captured at the first call
+        of each shape (the host then issues one launch where the eager
+        ResNet-50 issues ~290); elsewhere the eager call itself."""
+        return self._key_graphs(self.encode_key_eager, image, need_sk, need_ek,
+                                weights=(self.key_encoder, self.key_proj))
+
+    def encode_key_eager(self, image: Tensor, need_sk: bool = True, need_ek: bool = True):
         """image (B, 3, H, W) -> (key (B, CK, h, w), shrinkage (B, 1, h, w)
         or None, selection (B, CK, h, w) or None, f16, f8, f4)
         (``network.py:41-74``)."""

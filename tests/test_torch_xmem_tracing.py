@@ -6,7 +6,11 @@ On, each frame's spans nest as ``xmem.process`` -> ``xmem.key``,
 ``xmem.consolidate``); the counters ``xmem_frames``, ``xmem_mem_frames``,
 ``xmem_consolidations``, ``xmem_evictions`` count the frame schedule's
 events and ``xmem_read_elements`` the memory elements the reads attend.
-Off, nothing is recorded, and the answers are the same either way.
+Off, nothing is recorded, and the answers are the same either way. The
+key encoder's CUDA graph engages on the card only: here its counters
+``xmem_key_graph_captures`` and ``xmem_key_graph_replays`` stay absent, and
+the benchmark's reader of them, ``xmem_key_graph_share.video``, reads
+nothing.
 """
 
 import dataclasses
@@ -129,3 +133,25 @@ def test_the_tracer_changes_no_answer(setup):
             np.testing.assert_array_equal(a, b)
         else:
             assert torch.equal(a, b)
+
+
+def test_the_cpu_captures_no_graph(setup, traced):
+    run(setup)
+    counters = traced.summary()["counters"]
+    assert counters["xmem_frames"] == FRAMES
+    assert counters.get("xmem_key_graph_captures", 0) == 0
+    assert counters.get("xmem_key_graph_replays", 0) == 0
+
+
+@pytest.mark.parametrize("counters, share", [
+    (None, None),
+    ({}, None),
+    ({"xmem_frames": 80}, None),
+    ({"xmem_frames": 0, "xmem_key_graph_replays": 0}, None),
+    ({"xmem_frames": 80, "xmem_key_graph_replays": 80}, 100.0),
+    ({"xmem_frames": 80, "xmem_key_graph_replays": 60}, 75.0),
+])
+def test_graph_share_reader(counters, share):
+    read = harness.reader("xmem_key_graph_share.video")
+    rec = {} if counters is None else {"program_counters": counters}
+    assert read(rec) == share
