@@ -3,7 +3,9 @@
 Counterpart of ``d3fields_tpu/apps/_backends.py``, with the same
 environment variables and errors. Checkpoint sources:
 
-- DINOv2: a torch-hub ``dinov2_vitl14`` state dict (``D3F_DINOV2_CKPT``);
+- DINOv2: a torch-hub ``dinov2_vitl14`` state dict (``D3F_DINOV2_CKPT``),
+  or another hub backbone (``dinov2_vits14``, ``_vitb14``, ``_vitg14``,
+  ``_vitg14_reg``), its preset read from the state dict;
 - SAM: a huggingface ``SamModel`` state dict (``D3F_SAM_CKPT``);
 - GroundingDINO: a huggingface ``GroundingDinoForObjectDetection`` state
   dict (``D3F_GDINO_CKPT``) and a BERT vocab file (``D3F_BERT_VOCAB``);
@@ -82,11 +84,13 @@ def _env_dtype(var: str) -> str:
 def load_dinov2(path: str, device):
     from d3fields_tpu_torch.models import dinov2
 
-    cfg = dinov2.Dinov2Config.vit_large()
-    model = dinov2.Dinov2(cfg, device=device)
     if path.endswith(".npz"):
+        model = dinov2.Dinov2(dinov2.Dinov2Config.vit_large(), device=device)
         return dinov2.load_jax_params(model, load_params(path)[0])
-    sd = audit_state_dict(model, _load_torch_sd(path), "dinov2_hub")
+    sd = _load_torch_sd(path)
+    cfg = dinov2.config_for_state_dict(sd)
+    model = dinov2.Dinov2(cfg, device=device)
+    sd = audit_state_dict(model, sd, "dinov2_hub")
     model.load_state_dict(dinov2.convert_hub_state_dict(sd, cfg), strict=True)
     return model
 

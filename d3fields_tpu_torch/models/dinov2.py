@@ -2,7 +2,13 @@
 
 Counterpart of ``d3fields_tpu/models/dinov2.py``. The reference loads
 DINOv2 ViT-L/14 from torch hub and takes ``x_norm_patchtokens`` as the
-per-view descriptor map (``fusion.py:593-629``).
+per-view descriptor map (``fusion.py:593-629``). Beyond the JAX package,
+:class:`Dinov2Config` also describes torch hub's giant models
+(``dinov2_vitg14``, ``dinov2_vitg14_reg``): the fused SwiGLU feed-forward
+(``SwiGLUFFNFused``: ``w12`` then ``w3``), register tokens (inserted after
+the positional add, between the class token and the patches, and dropped
+from the descriptors), and the positional table interpolated bicubically
+with antialiasing at the exact grid size (``interpolate_offset`` 0).
 
 - :class:`Dinov2` keeps torch hub's parameter names and layouts, so a hub
   state dict loads as it is (:func:`convert_hub_state_dict` only checks and
@@ -24,6 +30,11 @@ per-view descriptor map (``fusion.py:593-629``).
   in f32 (the plain chain rounds them to bf16 first, the kernel does not)
   and the probabilities rounded to bf16; the final tokens come back as
   f32.
+- With :data:`tracer` on, ``dinov2.forward`` spans the transformer and
+  ``dinov2.ffn`` each block's feed-forward; the counters
+  ``dinov2_forwards`` (transformer calls), ``dinov2_tokens`` (tokens
+  entering the blocks, ``B * (1 + R + gh*gw)``) and ``dinov2_swiglu``
+  (SwiGLU feed-forward calls) are counted from host integers.
 - :class:`Dinov2Backbone` resizes with the bit-exact Pillow resampler
   ('pil', default) or antialiased bilinear ('device'), both on the device,
   normalises,
@@ -50,8 +61,10 @@ from d3fields_tpu_torch.models.resize import (
 from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.convert import np_view
 from d3fields_tpu_torch.utils.device import resolve_device
+from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
+FFN_KINDS = ("mlp", "swiglu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +76,32 @@ class Dinov2Config:
     patch_size: int = 14
     layerscale_init: float = 1.0
     image_size: int = 518  # pretraining grid: (518/14)^2 = 37^2 positions
+    ffn: str = "mlp"  # 'mlp': GELU fc1/fc2; 'swiglu': torch hub's SwiGLUFFNFused, w12/w3
+    num_register_tokens: int = 0
+    # torch hub's interpolate_pos_encoding: offset 0 interpolates to the
+    # exact grid size, otherwise by the scale factors (g + offset) / G
+    interpolate_antialias: bool = False
+    interpolate_offset: float = 0.1
+
+    def __post_init__(self):
+        if self.ffn not in FFN_KINDS:
+            raise ValueError(f"ffn must be one of {FFN_KINDS}, got {self.ffn!r}")
 
     @staticmethod
     def vit_large() -> "Dinov2Config":
         return Dinov2Config()
+
+    @staticmethod
+    def vit_giant2() -> "Dinov2Config":
+        """torch hub's ``dinov2_vitg14``."""
+        return Dinov2Config(hidden_size=1536, num_layers=40, num_heads=24, ffn="swiglu")
+
+    @staticmethod
+    def vit_giant2_reg() -> "Dinov2Config":
+        """torch hub's ``dinov2_vitg14_reg``: 4 registers, the positional
+        table antialiased at the exact grid size."""
+        return dataclasses.replace(Dinov2Config.vit_giant2(), num_register_tokens=4,
+                                   interpolate_antialias=True, interpolate_offset=0.0)
 
     @staticmethod
     def vit_base() -> "Dinov2Config":
@@ -84,6 +119,14 @@ class Dinov2Config:
     @property
     def pos_grid(self) -> int:
         return self.image_size // self.patch_size
+
+    @property
+    def ffn_hidden(self) -> int:
+        """The feed-forward's hidden width: ``mlp_ratio * D``, which
+        ``SwiGLUFFNFused`` takes to two thirds, rounded up to a multiple of 8
+        (4096 at D = 1536)."""
+        hidden = self.mlp_ratio * self.hidden_size
+        return (int(hidden * 2 / 3) + 7) // 8 * 8 if self.ffn == "swiglu" else hidden
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +162,21 @@ class _Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+class _SwiGLUFFN(nn.Module):
+    """torch hub's ``SwiGLUFFNFused``: ``w3(silu(x1) * x2)`` with ``x1, x2``
+    the two halves of ``w12(x)``; in bf16 each op rounds to bf16."""
+
+    def __init__(self, dim: int, hidden: int, device):
+        super().__init__()
+        self.w12 = linear(dim, 2 * hidden, device)
+        self.w3 = linear(hidden, dim, device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        tracer.count("dinov2_swiglu")
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
 class _Block(nn.Module):
     def __init__(self, cfg: Dinov2Config, device):
         super().__init__()
@@ -127,12 +185,15 @@ class _Block(nn.Module):
         self.attn = _Attention(D, cfg.num_heads, device)
         self.ls1 = _LayerScale(D, device)
         self.norm2 = nn.LayerNorm(D, eps=1e-6, device=device)
-        self.mlp = _Mlp(D, cfg.mlp_ratio * D, device)
+        ffn = _SwiGLUFFN if cfg.ffn == "swiglu" else _Mlp
+        self.mlp = ffn(D, cfg.ffn_hidden, device)
         self.ls2 = _LayerScale(D, device)
 
     def forward(self, x: Tensor) -> Tensor:
         x = x + self.ls1.gamma * self.attn(self.norm1(x))
-        return x + self.ls2.gamma * self.mlp(self.norm2(x))
+        with tracer.span("dinov2.ffn"):
+            m = self.mlp(self.norm2(x))
+        return x + self.ls2.gamma * m
 
 
 class _PatchEmbed(nn.Module):
@@ -155,6 +216,8 @@ class Dinov2(nn.Module):
         D, G = cfg.hidden_size, cfg.pos_grid
         self.cfg = cfg
         self.cls_token = nn.Parameter(torch.empty(1, 1, D, device=dev))
+        R = cfg.num_register_tokens
+        self.register_tokens = nn.Parameter(torch.empty(1, R, D, device=dev)) if R else None
         self.pos_embed = nn.Parameter(torch.empty(1, 1 + G * G, D, device=dev))
         self.patch_embed = _PatchEmbed(cfg, dev)
         self.blocks = nn.ModuleList([_Block(cfg, dev) for _ in range(cfg.num_layers)])
@@ -167,8 +230,9 @@ class Dinov2(nn.Module):
           pixels: (B, H, W, 3) normalised images, H/W multiples of the patch size.
           pos_embed: (1 + gh*gw, D) interpolated positional table.
 
-        Returns: (B, 1 + gh*gw, D) final-layernorm tokens (cls first) —
-        torch hub's ``x_norm_*`` outputs, in f32 whatever the weights' dtype.
+        Returns: (B, 1 + R + gh*gw, D) final-layernorm tokens (cls, then the
+        R register tokens, then the patches) — torch hub's ``x_norm_*``
+        outputs, in f32 whatever the weights' dtype.
         """
         B, H, W, _ = pixels.shape
         P = self.cfg.patch_size
@@ -180,9 +244,14 @@ class Dinov2(nn.Module):
         proj = self.patch_embed.proj
         x = F.linear(x, proj.weight.reshape(D, 3 * P * P), proj.bias)
         x = torch.cat([self.cls_token.expand(B, 1, D), x], dim=1) + pos_embed[None].to(dt)
-        for blk in self.blocks:
-            x = blk(x)
-        return self.norm(x).float()
+        if self.register_tokens is not None:  # no position: inserted after the add
+            x = torch.cat([x[:, :1], self.register_tokens.expand(B, -1, -1), x[:, 1:]], dim=1)
+        tracer.count("dinov2_forwards")
+        tracer.count("dinov2_tokens", B * x.shape[1])
+        with tracer.span("dinov2.forward"):
+            for blk in self.blocks:
+                x = blk(x)
+            return self.norm(x).float()
 
 
 def init_params(cfg: Dinov2Config, generator: Optional[torch.Generator] = None,
@@ -198,7 +267,8 @@ def init_params(cfg: Dinov2Config, generator: Optional[torch.Generator] = None,
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if name in ("cls_token", "pos_embed") or (leaf == "weight" and p.dim() > 1):
+            if name in ("cls_token", "register_tokens", "pos_embed") or \
+                    (leaf == "weight" and p.dim() > 1):
                 p.normal_(0.0, 0.02, generator=gen)
             elif leaf == "gamma":
                 p.fill_(cfg.layerscale_init)
@@ -224,9 +294,12 @@ class Dinov2Backbone:
     def __init__(self, model: Dinov2, *, compute_dtype: str = "float32",
                  pos_interpolate: str = "hub", resize_mode: str = "pil", device=None):
         """``pos_interpolate``: 'hub' reproduces torch-hub DINOv2's
-        scale-factor interpolation with interpolate_offset=0.1 (what the
-        reference loads, ``fusion.py:223``); 'hf' is huggingface
-        Dinov2Model's exact-size grid.
+        interpolation as the model's config states it: the scale factors of
+        interpolate_offset=0.1 without antialiasing (what the reference
+        loads, ``fusion.py:223``; the JAX package's table to the bit), or
+        ``F.interpolate`` in float64 with the config's offset and antialias
+        (the register models: the exact grid size, antialiased); 'hf' is
+        huggingface Dinov2Model's exact-size grid.
 
         ``resize_mode``: 'pil' (default) resizes uint8 images on the device
         with the bit-exact Pillow bilinear resampler the reference's
@@ -247,7 +320,8 @@ class Dinov2Backbone:
         self.compute_dtype = compute_dtype
         # the transformer in the compute dtype; its pos_embed stays f32
         self.model = cast_copy(model.to(self.device).eval(), torch_dtype(compute_dtype),
-                               ("cls_token", "patch_embed.", "blocks.", "norm."))
+                               ("cls_token", "register_tokens", "patch_embed.", "blocks.",
+                                "norm."))
         self.cfg = model.cfg
         self.pos_interpolate = pos_interpolate
         self.resize_mode = resize_mode
@@ -284,13 +358,19 @@ class Dinov2Backbone:
                 out = pe
             else:
                 cls_pe, patch_pe = pe[:1], pe[1:].reshape(G, G, -1)
-                scale_hw = None  # 'hf': exact-size grid
-                if self.pos_interpolate == "hub":
-                    # torch hub interpolates with explicit scale factors
-                    # (g + 0.1)/G (interpolate_offset=0.1), a different
-                    # sampling grid than the plain size ratio
-                    scale_hw = ((gh + 0.1) / G, (gw + 0.1) / G)
-                patch_pe = cubic_resize_np(patch_pe, (gh, gw), scale_hw=scale_hw)
+                cfg = self.cfg
+                if self.pos_interpolate == "hub" and (
+                        cfg.interpolate_antialias or cfg.interpolate_offset != 0.1):
+                    patch_pe = _hub_interpolate(patch_pe, (gh, gw), cfg.interpolate_offset,
+                                                cfg.interpolate_antialias)
+                else:
+                    scale_hw = None  # 'hf': exact-size grid
+                    if self.pos_interpolate == "hub":
+                        # torch hub interpolates with explicit scale factors
+                        # (g + 0.1)/G (interpolate_offset=0.1), a different
+                        # sampling grid than the plain size ratio
+                        scale_hw = ((gh + 0.1) / G, (gw + 0.1) / G)
+                    patch_pe = cubic_resize_np(patch_pe, (gh, gw), scale_hw=scale_hw)
                 out = np.concatenate([cls_pe, patch_pe.reshape(gh * gw, -1)], axis=0)
             table = torch.as_tensor(out)
             self._pos_cache[key] = {d: table.to(d) for d in self._views.replicas}
@@ -313,6 +393,20 @@ class Dinov2Backbone:
             return _extract_patch_features(model, images, pos, (ph * P, pw * P))
 
 
+def _hub_interpolate(grid: np.ndarray, out_hw: Tuple[int, int], offset: float,
+                     antialias: bool) -> np.ndarray:
+    """torch hub's ``interpolate_pos_encoding`` of a (G, G, D) table to
+    ``out_hw``, bicubic in float64: by the scale factors (g + offset) / G,
+    or at the exact size where ``offset`` is 0; antialiased where asked."""
+    G = grid.shape[0]
+    x = torch.from_numpy(grid).double().permute(2, 0, 1)[None]
+    size = {"scale_factor": ((out_hw[0] + offset) / G, (out_hw[1] + offset) / G)} if offset \
+        else {"size": tuple(out_hw)}
+    x = F.interpolate(x, mode="bicubic", antialias=antialias, align_corners=False, **size)
+    assert tuple(x.shape[-2:]) == tuple(out_hw), (x.shape, out_hw, offset)
+    return x[0].permute(1, 2, 0).numpy().astype(grid.dtype)
+
+
 def _extract_patch_features(model: Dinov2, images_u8: Tensor, pos_embed: Tensor,
                             resize_hw: Tuple[int, int]) -> Tensor:
     """uint8 (K, H, W, 3) -> (K, ph, pw, D) patch tokens."""
@@ -323,7 +417,8 @@ def _extract_patch_features(model: Dinov2, images_u8: Tensor, pos_embed: Tensor,
     tokens = model.forward_tokens((pixels - mean) / std, pos_embed)
     P = model.cfg.patch_size
     ph, pw = resize_hw[0] // P, resize_hw[1] // P
-    return tokens[:, 1:].reshape(images_u8.shape[0], ph, pw, -1)
+    first = 1 + model.cfg.num_register_tokens  # the class token and the registers
+    return tokens[:, first:].reshape(images_u8.shape[0], ph, pw, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -338,15 +433,54 @@ _BLOCK_KEYS = (
 )
 
 
+def _block_keys(cfg: Dinov2Config) -> Tuple[str, ...]:
+    if cfg.ffn == "mlp":
+        return _BLOCK_KEYS
+    return tuple(k.replace("mlp.fc1", "mlp.w12").replace("mlp.fc2", "mlp.w3") for k in _BLOCK_KEYS)
+
+
 def convert_hub_state_dict(sd, cfg: Dinov2Config) -> Dict[str, Tensor]:
     """A facebookresearch/dinov2 torch-hub state dict (the checkpoints the
     reference downloads, ``fusion.py:223``) as a :class:`Dinov2` state dict:
-    the same names and layouts, without the unused ``mask_token``."""
+    the same names and layouts (``register_tokens`` and the SwiGLU's
+    ``mlp.w12`` / ``mlp.w3`` where ``cfg`` has them), without the unused
+    ``mask_token``."""
     sd = np_view(sd)
     keys = ["cls_token", "pos_embed", "patch_embed.proj.weight",
             "patch_embed.proj.bias", "norm.weight", "norm.bias"]
-    keys += [f"blocks.{i}.{k}" for i in range(cfg.num_layers) for k in _BLOCK_KEYS]
+    keys += ["register_tokens"] * bool(cfg.num_register_tokens)
+    keys += [f"blocks.{i}.{k}" for i in range(cfg.num_layers) for k in _block_keys(cfg)]
     return {k: torch.from_numpy(np.array(sd[k], np.float32)) for k in keys}
+
+
+# the presets a hub state dict is matched against, by name (looked up at
+# each call)
+_PRESETS = ("vit_small", "vit_base", "vit_large", "vit_giant2", "vit_giant2_reg")
+
+
+def config_for_state_dict(sd) -> Dinov2Config:
+    """The preset of a torch-hub state dict (``dinov2_vit{s,b,l,g}14`` and
+    ``dinov2_vitg14_reg``), read from its keys and widths: the width of
+    ``pos_embed`` and its grid, the count of ``blocks.*``, whether
+    ``mlp.w12`` (SwiGLU) and ``register_tokens`` are there and how many
+    registers. The head count is the preset's: a state dict does not hold
+    it. The checkpoint loaders (``apps/_backends.py``) call it."""
+    if "pos_embed" not in sd:
+        raise ValueError("cannot sniff the DINOv2 variant: no 'pos_embed' in the state dict "
+                         "— pass an explicit cfg")
+    shape = tuple(np.shape(sd["pos_embed"]))
+    blocks = {int(k.split(".")[1]) for k in sd if k.startswith("blocks.")}
+    found = dict(hidden_size=shape[-1], num_layers=len(blocks),
+                 pos_grid=int(round((shape[1] - 1) ** 0.5)),
+                 ffn="swiglu" if "blocks.0.mlp.w12.weight" in sd else "mlp",
+                 num_register_tokens=int(np.shape(sd["register_tokens"])[1])
+                 if "register_tokens" in sd else 0)
+    for name in _PRESETS:
+        cfg = getattr(Dinov2Config, name)()
+        if all(getattr(cfg, k) == v for k, v in found.items()):
+            return cfg
+    raise ValueError(f"no DINOv2 preset ({', '.join(_PRESETS)}) has {found} — pass an "
+                     "explicit cfg")
 
 
 def convert_hf_state_dict(sd, cfg: Dinov2Config) -> Dict[str, Tensor]:
@@ -382,8 +516,14 @@ def convert_hf_state_dict(sd, cfg: Dinov2Config) -> Dict[str, Tensor]:
 def load_jax_params(model: Dinov2, params: Dict[str, np.ndarray]) -> Dinov2:
     """Copy the JAX package's DINOv2 parameter dict (the stacked ``(L, ...)``
     leaves of ``d3fields_tpu.models.dinov2.init_params``, as numpy arrays)
-    into ``model``, in place. Returns ``model``."""
+    into ``model``, in place. Returns ``model``. The JAX package has neither
+    the SwiGLU feed-forward nor register tokens: a config with either
+    raises ``ValueError``."""
     cfg = model.cfg
+    if cfg.ffn != "mlp" or cfg.num_register_tokens:
+        raise ValueError("the JAX package's DINOv2 has the GELU MLP and no register tokens; "
+                         f"cannot load its parameters into ffn={cfg.ffn!r} with "
+                         f"{cfg.num_register_tokens} registers")
     P, D = cfg.patch_size, cfg.hidden_size
     p = {k: np.asarray(v, np.float32) for k, v in params.items()}
     sd = {
