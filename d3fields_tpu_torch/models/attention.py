@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from d3fields_tpu_torch import _build
+from d3fields_tpu_torch.utils.cuda_graph import host_effect
 from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
@@ -255,7 +256,8 @@ def vit_attention(qkv: Tensor) -> Tensor:
     where :func:`vit_attention_refusal` says it cannot take them;
     ``vit_attention.launches`` counts each launch,
     ``vit_attention.launches_bf16`` those of the bf16 route, and the
-    tracer's ``dinov2_attn`` counter each launch too.
+    tracer's ``dinov2_attn`` counter each launch too (:func:`_count_vit`;
+    a launch inside a graphed call is counted at each replay).
     """
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be (B, L, 3, nh, hd), got {tuple(qkv.shape)}")
@@ -275,11 +277,16 @@ def vit_attention(qkv: Tensor) -> Tensor:
                   getattr(_build.load("sam_attention", declare), _VIT_ROUTES[qkv.dtype]),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   B, L, nh, hd, q.stride(0), q.stride(1), q.stride(2), hd ** -0.5)
+    host_effect(_count_vit, qkv.dtype == torch.bfloat16)
+    return out
+
+
+def _count_vit(bf16: bool) -> None:
+    """One launch of :func:`vit_attention`'s kernel, counted."""
     vit_attention.launches += 1
-    if qkv.dtype == torch.bfloat16:
+    if bf16:
         vit_attention.launches_bf16 += 1
     tracer.count("dinov2_attn")
-    return out
 
 
 vit_attention.launches = 0

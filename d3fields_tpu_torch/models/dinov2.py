@@ -30,11 +30,19 @@ with antialiasing at the exact grid size (``interpolate_offset`` 0).
   in f32 (the plain chain rounds them to bf16 first, the kernel does not)
   and the probabilities rounded to bf16; the final tokens come back as
   f32.
-- With :data:`tracer` on, ``dinov2.forward`` spans the transformer and
-  ``dinov2.ffn`` each block's feed-forward; the counters
+- On the card, with autograd off, :meth:`Dinov2.forward_tokens` replays a
+  CUDA graph of :meth:`Dinov2.forward_tokens_eager`, one captured at the
+  first call of each input signature (``utils/cuda_graph.py``): the host
+  issues one launch where the eager ViT-L issues ~300. Its tokens are the
+  eager call's, bit for bit.
+- With :data:`tracer` on, ``dinov2.forward`` spans the transformer (the
+  graphed call) and ``dinov2.ffn`` each block's feed-forward (eager calls
+  only: a replay runs no Python of the blocks); the counters
   ``dinov2_forwards`` (transformer calls), ``dinov2_tokens`` (tokens
   entering the blocks, ``B * (1 + R + gh*gw)``) and ``dinov2_swiglu``
-  (SwiGLU feed-forward calls) are counted from host integers.
+  (SwiGLU feed-forward calls) are counted from host integers, the last
+  (and the attention's launches) at each replay too; the graph's captures
+  and replays as ``dinov2_graph_captures`` and ``dinov2_graph_replays``.
 - :class:`Dinov2Backbone` resizes with the bit-exact Pillow resampler
   ('pil', default) or antialiased bilinear ('device'), both on the device,
   normalises,
@@ -60,6 +68,7 @@ from d3fields_tpu_torch.models.resize import (
 )
 from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.convert import np_view
+from d3fields_tpu_torch.utils.cuda_graph import GraphCache, host_effect
 from d3fields_tpu_torch.utils.device import resolve_device
 from d3fields_tpu_torch.utils.profiling import tracer
 
@@ -172,7 +181,7 @@ class _SwiGLUFFN(nn.Module):
         self.w3 = linear(hidden, dim, device)
 
     def forward(self, x: Tensor) -> Tensor:
-        tracer.count("dinov2_swiglu")
+        host_effect(tracer.count, "dinov2_swiglu")
         x1, x2 = self.w12(x).chunk(2, dim=-1)
         return self.w3(F.silu(x1) * x2)
 
@@ -222,8 +231,22 @@ class Dinov2(nn.Module):
         self.patch_embed = _PatchEmbed(cfg, dev)
         self.blocks = nn.ModuleList([_Block(cfg, dev) for _ in range(cfg.num_layers)])
         self.norm = nn.LayerNorm(D, eps=1e-6, device=dev)
+        self._graphs = GraphCache("dinov2_graph")
 
     def forward_tokens(self, pixels: Tensor, pos_embed: Tensor) -> Tensor:
+        """:meth:`forward_tokens_eager`'s tokens. On CUDA inputs with
+        autograd off, a replay of a CUDA graph of it, one captured at the
+        first call of each signature (the inputs' shapes, strides and
+        dtypes); elsewhere the eager call itself."""
+        B, H, W, _ = pixels.shape
+        P = self.cfg.patch_size
+        tracer.count("dinov2_forwards")
+        tracer.count("dinov2_tokens",
+                     B * (1 + self.cfg.num_register_tokens + (H // P) * (W // P)))
+        with tracer.span("dinov2.forward"):
+            return self._graphs(self.forward_tokens_eager, pixels, pos_embed, weights=(self,))
+
+    def forward_tokens_eager(self, pixels: Tensor, pos_embed: Tensor) -> Tensor:
         """Run the transformer.
 
         Args:
@@ -246,12 +269,9 @@ class Dinov2(nn.Module):
         x = torch.cat([self.cls_token.expand(B, 1, D), x], dim=1) + pos_embed[None].to(dt)
         if self.register_tokens is not None:  # no position: inserted after the add
             x = torch.cat([x[:, :1], self.register_tokens.expand(B, -1, -1), x[:, 1:]], dim=1)
-        tracer.count("dinov2_forwards")
-        tracer.count("dinov2_tokens", B * x.shape[1])
-        with tracer.span("dinov2.forward"):
-            for blk in self.blocks:
-                x = blk(x)
-            return self.norm(x).float()
+        for blk in self.blocks:
+            x = blk(x)
+        return self.norm(x).float()
 
 
 def init_params(cfg: Dinov2Config, generator: Optional[torch.Generator] = None,
