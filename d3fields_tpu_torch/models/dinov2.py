@@ -36,13 +36,11 @@ with antialiasing at the exact grid size (``interpolate_offset`` 0).
   issues one launch where the eager ViT-L issues ~300. Its tokens are the
   eager call's, bit for bit.
 - With :data:`tracer` on, ``dinov2.forward`` spans the transformer (the
-  graphed call) and ``dinov2.ffn`` each block's feed-forward (eager calls
-  only: a replay runs no Python of the blocks); the counters
-  ``dinov2_forwards`` (transformer calls), ``dinov2_tokens`` (tokens
-  entering the blocks, ``B * (1 + R + gh*gw)``) and ``dinov2_swiglu``
-  (SwiGLU feed-forward calls) are counted from host integers, the last
-  (and the attention's launches) at each replay too; the graph's captures
-  and replays as ``dinov2_graph_captures`` and ``dinov2_graph_replays``.
+  graphed call); the counters ``dinov2_forwards`` (transformer calls) and
+  ``dinov2_tokens`` (tokens entering the blocks, ``B * (1 + R + gh*gw)``)
+  are counted from host integers, the attention's launches at each replay
+  too; the graph's captures and replays as ``dinov2_graph_captures`` and
+  ``dinov2_graph_replays``.
 - :class:`Dinov2Backbone` resizes with the bit-exact Pillow resampler
   ('pil', default) or antialiased bilinear ('device'), both on the device,
   normalises,
@@ -68,7 +66,7 @@ from d3fields_tpu_torch.models.resize import (
 )
 from d3fields_tpu_torch.parallel.mesh import ViewShards
 from d3fields_tpu_torch.utils.convert import np_view
-from d3fields_tpu_torch.utils.cuda_graph import GraphCache, host_effect
+from d3fields_tpu_torch.utils.cuda_graph import GraphCache
 from d3fields_tpu_torch.utils.device import resolve_device
 from d3fields_tpu_torch.utils.profiling import tracer
 
@@ -181,7 +179,6 @@ class _SwiGLUFFN(nn.Module):
         self.w3 = linear(hidden, dim, device)
 
     def forward(self, x: Tensor) -> Tensor:
-        host_effect(tracer.count, "dinov2_swiglu")
         x1, x2 = self.w12(x).chunk(2, dim=-1)
         return self.w3(F.silu(x1) * x2)
 
@@ -200,9 +197,7 @@ class _Block(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         x = x + self.ls1.gamma * self.attn(self.norm1(x))
-        with tracer.span("dinov2.ffn"):
-            m = self.mlp(self.norm2(x))
-        return x + self.ls2.gamma * m
+        return x + self.ls2.gamma * self.mlp(self.norm2(x))
 
 
 class _PatchEmbed(nn.Module):

@@ -32,7 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from d3fields_tpu_torch import _build
-from d3fields_tpu_torch.utils.profiling import tracer
 
 Tensor = torch.Tensor
 
@@ -115,9 +114,7 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     f32 route or, for a bf16 ``value``, its bf16-table route (which loads
     :func:`bf16_width` elements at once and raises when ``value`` is not
     aligned for that load); ``deform_gather.launches`` counts each launch,
-    and ``deform_gather.launches_bf16`` those of the bf16-table route. The
-    tracer's ``deform_gathers`` counter counts every call, a launch of
-    either route on the card, the plain version on the CPU.
+    and ``deform_gather.launches_bf16`` those of the bf16-table route.
     """
     if value.dim() != 4 or loc.dim() != 6 or attn.dim() != 5:
         raise ValueError("value must be (B, S, nh, hd), loc (B, Q, nh, L, P, 2) and "
@@ -136,7 +133,6 @@ def deform_gather(value: Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                         f"got {value.dtype}, {loc.dtype}, {attn.dtype}")
     if not (value.device == loc.device == attn.device):
         raise ValueError("value, loc and attn must lie on one device")
-    tracer.count("deform_gathers")
     if value.device.type == "cpu":
         return deform_gather_plain(value, shapes, loc, attn)
     if value.device.type != "cuda":

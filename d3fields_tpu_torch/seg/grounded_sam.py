@@ -20,7 +20,6 @@ from d3fields_tpu_torch.models.sam.predictor import SamPredictor
 from d3fields_tpu_torch.seg.backends import with_background
 from d3fields_tpu_torch.seg.instances import ViewMasks
 from d3fields_tpu_torch.utils.profiling import tracer
-from d3fields_tpu_torch.utils.profiling import tracer
 
 TEXT_THRESHOLD = 0.25  # reference utils/grounded_sam.py:414
 

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from d3fields_tpu_torch.apps import _backends
 from d3fields_tpu_torch.models import dinov2 as td2
-from d3fields_tpu_torch.utils.profiling import tracer
+from d3fields_tpu_torch.utils.profiling import DEVICE_SPANS, DEVICE_US, tracer
 from port_bench import weights, weights_vitg
 from port_bench.drivers.common import token_rel
 from port_bench.reference import dinov2_vitg as ref
@@ -123,7 +123,8 @@ def test_positional_table_is_antialiased_at_the_exact_size(model, grid):
 
 def test_tracer_counts_the_tokens_and_the_swiglu_calls(model, images):
     """4 views on a 4x4 grid: one transformer call of 4 x (1 + 4 + 16)
-    tokens, a SwiGLU call and a ``dinov2.ffn`` span a layer."""
+    tokens through the 3 SwiGLU layers, one ``dinov2.forward`` span and no
+    span or counter of a block's feed-forward."""
     backbone = td2.Dinov2Backbone(model, device="cpu")
     imgs = torch.as_tensor(np.concatenate([images, images[:1]]))
     tracer.reset()
@@ -135,9 +136,11 @@ def test_tracer_counts_the_tokens_and_the_swiglu_calls(model, images):
     s = tracer.summary()
     tracer.reset()
     c = s["counters"]
-    assert (c["dinov2_forwards"], c["dinov2_tokens"], c["dinov2_swiglu"]) == (1, 84, 3)
-    assert s["spans"]["dinov2.forward"]["count"] == 1
-    assert s["spans"]["dinov2.ffn"]["count"] == 3
+    assert (c["dinov2_forwards"], c["dinov2_tokens"]) == (1, 84)
+    assert sum(isinstance(b.mlp, td2._SwiGLUFFN) for b in model.blocks) == 3
+    assert {k for k in c if not k.endswith((DEVICE_US, DEVICE_SPANS))} == {
+        "dinov2_forwards", "dinov2_tokens"}
+    assert set(s["spans"]) == {"dinov2.forward"} and s["spans"]["dinov2.forward"]["count"] == 1
 
 
 def test_load_jax_params_refuses_swiglu_and_registers():

@@ -3,10 +3,9 @@
 
 On, one request's spans nest as ``seg.segment_views`` -> ``seg.detect``
 (-> ``.text``, ``.backbone``, ``.encoder``, ``.decoder``, ``.post``),
-``seg.sam.encode``, ``seg.sam.decode``, ``seg.masks``; ``seg_boxes`` counts
-the boxes SAM decodes and ``deform_gathers`` the deformable samplings (one
-a decoder or encoder layer), each charged to the span it happens in. Off,
-nothing is recorded and the masks are the same.
+``seg.sam.encode``, ``seg.sam.decode``, ``seg.masks``, each once a request;
+``seg_boxes`` counts the boxes SAM decodes, charged to the span it happens
+in. Off, nothing is recorded and the masks are the same.
 """
 
 import dataclasses
@@ -58,7 +57,7 @@ def traced():
 
 
 def test_spans_nest_and_counters_count(backend, images, traced):
-    be, gcfg = backend
+    be, _ = backend
     views = be.segment_views(images, QUERIES, [-1.0])
     recs = traced.records()
     names = [r[0] for r in recs]
@@ -73,11 +72,12 @@ def test_spans_nest_and_counters_count(backend, images, traced):
     assert boxes > 0
     assert s["counters"]["seg_boxes"] == boxes
     assert s["counters_by_span"]["seg.sam.decode"]["seg_boxes"] == boxes
-    layers = gcfg.encoder_layers + gcfg.decoder_layers
-    assert s["counters"]["deform_gathers"] == layers
-    by = s["counters_by_span"]
-    assert by["seg.detect.encoder"]["deform_gathers"] == gcfg.encoder_layers
-    assert by["seg.detect.decoder"]["deform_gathers"] == gcfg.decoder_layers
+    stages = ["seg.detect." + k for k in ("text", "backbone", "encoder", "decoder", "post")]
+    be.segment_views(images, QUERIES, [-1.0])  # a second request
+    s = traced.summary()
+    assert sorted(s["spans"]["seg.detect"]["children"]) == sorted(stages)
+    for name in ["seg.detect"] + stages:
+        assert s["spans"][name]["count"] == 2, name
     assert set(s["spans"]["seg.segment_views"]["children"]) == {
         "seg.detect", "seg.sam.encode", "seg.sam.decode", "seg.masks"}
 
